@@ -1,0 +1,17 @@
+"""PyTorch port of the ``repro`` reproduction of "Low latency via redundancy".
+
+The JAX package ``repro`` is the reference; this package runs the same
+sweep engine (``core.queueing.run``) and threshold estimators
+(``core.threshold``) on an NVIDIA H100 through hand-written CUDA
+kernels (``kernels.cell_update``, ``kernels.hist_sketch``). It imports
+torch and numpy only — never JAX, and nothing of ``repro``.
+
+Entry points take ``device=`` and default to ``"cuda"``; pass
+``device="cpu"`` to run the plain PyTorch path, which is what the CPU
+tests do. Asking for CUDA on a machine without it raises.
+"""
+from repro_torch import interop  # noqa: F401
+from repro_torch.core import (analytic, cellplan, chunkflow,  # noqa: F401
+                              distributions, queueing, scenario, threshold)
+from repro_torch.kernels.cell_update import ops as cell_update_ops  # noqa: F401
+from repro_torch.kernels.hist_sketch import ops as hist_sketch_ops  # noqa: F401

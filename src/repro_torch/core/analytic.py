@@ -1,0 +1,88 @@
+"""Closed-form results from the paper (the port's copy of the closed forms
+of ``repro.core.analytic``; the §3.1 TCP handshake model is not ported).
+
+* Theorem 1 (M/M/1 + replication): with unit-mean exponential service and
+  per-server arrival rate rho, mean response is 1/(1-rho) unreplicated and
+  1/(2(1-2rho)) with k=2 (min of two independent Exp(1-2rho) samples), so
+  replication helps iff rho < 1/3.
+* The general-k M/M/1 approximation (k-way independent queues).
+* Light-load means for the timed policies (``hedge_mean_light`` /
+  ``retry_mean_light``).
+"""
+from __future__ import annotations
+
+import numpy as np
+
+THRESHOLD_EXPONENTIAL = 1.0 / 3.0
+# Paper: deterministic-service threshold from queueing-model simulation.
+THRESHOLD_DETERMINISTIC = 0.2582
+
+
+def mm1_mean(rho):
+    """Mean response of an M/M/1 queue with unit-mean service."""
+    rho = np.asarray(rho, dtype=np.float64)
+    with np.errstate(divide="ignore"):
+        return np.where(rho < 1.0, 1.0 / (1.0 - rho), np.inf)
+
+
+def mm1_response_cdf(t, rho):
+    """P(response <= t) for M/M/1: Exp(1 - rho)."""
+    t, rho = np.asarray(t, np.float64), np.asarray(rho, np.float64)
+    return 1.0 - np.exp(-(1.0 - rho) * t)
+
+
+def mm1_replicated_mean(rho, k: int = 2):
+    """Mean of min over k independent M/M/1 responses, each at load k*rho."""
+    rate = 1.0 - k * np.asarray(rho, dtype=np.float64)
+    with np.errstate(divide="ignore"):
+        return np.where(rate > 0.0, 1.0 / (k * rate), np.inf)
+
+
+def hedge_mean_light(d):
+    """Light-load mean response of ``HEDGE_AFTER_DELAY`` with a copy budget
+    of 2, unit-mean exponential service and hedge delay ``d``: the primary
+    finishes by ``d`` with its own draw, else the residual primary and the
+    fresh hedge race from ``d`` (min of two Exp(1)):
+    E[T] = 1 - e^{-d}/2."""
+    return 1.0 - np.exp(-np.asarray(d, np.float64)) / 2.0
+
+
+def retry_mean_light(d, f=0.0):
+    """Light-load mean response of ``TIMEOUT_RETRY`` with an attempt budget
+    of 2, unit-mean exponential service, deadline ``d`` and blackhole
+    probability ``f`` (the last attempt is exempt):
+    E[T] = (1-f) (1 - e^{-d}/2) + f (1 + d)."""
+    d, f = np.asarray(d, np.float64), np.asarray(f, np.float64)
+    return (1.0 - f) * (1.0 - np.exp(-d) / 2.0) + f * (1.0 + d)
+
+
+def mm1_cancel_bounds(rho, k: int = 2):
+    """(lower, upper) bounds on the mean response of replication WITH
+    cancellation-on-complete (unit-mean exponential service): the winning
+    copy's service, mean ``1/k``, below; the unreplicated M/M/1 mean
+    above (redundancy never hurts memoryless service with cancellation)."""
+    rho = np.asarray(rho, dtype=np.float64)
+    return np.full_like(rho, 1.0 / k), mm1_mean(rho)
+
+
+def exponential_threshold(k: int = 2, overhead: float = 0.0) -> float:
+    """Largest rho with mm1_replicated_mean(rho,k) + overhead < mm1_mean(rho).
+
+    For k=2, c=0 this is exactly 1/3 (Theorem 1); otherwise solved by
+    bisection."""
+    if k == 2 and overhead == 0.0:
+        return THRESHOLD_EXPONENTIAL
+    lo, hi = 1e-6, 1.0 / k - 1e-9
+
+    def f(r):
+        return float(mm1_replicated_mean(r, k) + overhead - mm1_mean(r))
+
+    if f(lo) >= 0.0:
+        return 0.0
+    for _ in range(80):
+        mid = 0.5 * (lo + hi)
+        if f(mid) < 0.0:
+            lo = mid
+        else:
+            hi = mid
+    return float(np.round(0.5 * (lo + hi), 6))

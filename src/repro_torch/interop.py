@@ -1,0 +1,188 @@
+"""Carry the JAX package's numpy state into the port.
+
+The port has no weights; what crosses from the reference is state: a
+chunk's sampled inputs (``unit_gaps`` or ``cum``, ``servers``,
+``services``), the per-cell carry (``free``, ``ssum``, ``comp``,
+``cnt``, ``hist``) and the cell-plan coordinates. Everything arrives as
+numpy arrays (the tests pull them out of JAX with ``np.asarray``), so
+this module needs neither JAX nor ``repro``.
+
+``NumpySampler`` replays pre-drawn numpy chunks through the port's
+``queueing._run_engine``, so one set of draws can be pushed through
+both engines.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import cellplan
+from repro_torch.device import resolve_device
+
+_DTYPES = {np.dtype(np.float32): torch.float32,
+           np.dtype(np.int32): torch.int32,
+           np.dtype(np.int64): torch.int64,
+           np.dtype(np.bool_): torch.bool}
+
+
+def to_tensor(x, device="cuda") -> torch.Tensor:
+    """A numpy array (or array-like) as a tensor of the same dtype and
+    bits on ``device`` — CUDA unless the CPU is asked for, as at every
+    entry point of the port (``repro_torch.device.resolve_device``)."""
+    device = resolve_device(device)
+    a = np.array(x, order="C")  # a writable copy the tensor may own
+    if a.dtype not in _DTYPES:
+        raise TypeError(f"unsupported dtype {a.dtype}")
+    return torch.from_numpy(a).to(device=device)
+
+
+def carry_from_numpy(free, ssum, comp, cnt, hist, device="cuda"):
+    """The per-cell carry ``(free (C,N), ssum, comp, cnt (C,), hist (C,
+    n_bins) or (0, 0))`` as float32 tensors."""
+    return tuple(to_tensor(np.asarray(x, np.float32), device)
+                 for x in (free, ssum, comp, cnt, hist))
+
+
+def chunk_from_numpy(gaps_or_cum, servers, services, device="cuda"):
+    """A chunk's sampled inputs: float32 (S, T) gaps or cumulative
+    offsets, int32 (S, T, k_max) copy sets, float32 (S_svc, T, n_svc)
+    service columns."""
+    return (to_tensor(np.asarray(gaps_or_cum, np.float32), device),
+            to_tensor(np.asarray(servers, np.int32), device),
+            to_tensor(np.asarray(services, np.float32), device))
+
+
+def plan_from_numpy(n_seeds: int, n_loads: int, n_ks: int, *, seed_idx,
+                    load_idx, k_idx, valid, policy_code, model_code,
+                    dist_id, device="cuda") -> cellplan.CellPlan:
+    """A ``CellPlan`` from the reference plan's coordinates (numpy)."""
+    seed_idx = np.asarray(seed_idx)
+    n_cells = n_seeds * n_loads * n_ks
+
+    def long(x):
+        return to_tensor(np.asarray(x, np.int64), device)
+
+    return cellplan.CellPlan(
+        n_seeds=n_seeds, n_loads=n_loads, n_ks=n_ks, n_cells=n_cells,
+        n_padded=int(seed_idx.shape[0]), seed_idx=long(seed_idx),
+        load_idx=long(load_idx), k_idx=long(k_idx),
+        valid=to_tensor(np.asarray(valid, bool), device),
+        policy_code=to_tensor(np.asarray(policy_code, np.int32), device),
+        model_code=to_tensor(np.asarray(model_code, np.int32), device),
+        dist_id=long(dist_id))
+
+
+class NumpySampler:
+    """Replays pre-drawn chunks ``[(unit_gaps (S,T), servers (S,T,k),
+    services (S_svc,T,n_svc)), ...]`` (numpy) through the port's engine:
+    ``sampler(c, t)`` returns chunk ``c`` as tensors on ``device``."""
+
+    def __init__(self, chunks, device="cuda"):
+        self.chunks = list(chunks)
+        self.device = resolve_device(device)
+
+    def __call__(self, c: int, t: int):
+        gaps, servers, services = self.chunks[c]
+        if np.shape(gaps)[1] != t:
+            raise ValueError(f"chunk {c} holds {np.shape(gaps)[1]} steps, "
+                             f"the engine asked for {t}")
+        return chunk_from_numpy(gaps, servers, services, self.device)
+
+
+# Argument order of ``cell_update_ref`` / ``cell_update`` in both packages.
+CELL_UPDATE_ARGS = ("free", "ssum", "comp", "cnt", "hist", "cum", "warm",
+                    "valid", "servers", "services", "seed_idx", "rates",
+                    "k_mask", "ovh", "policy_code", "model_code", "mix",
+                    "p_slow", "slow_factor", "p_fail", "delay", "svc_idx")
+
+
+# Arms of the cell update that the parity checks cover (keyword
+# arguments of ``synthetic_chunk``): every policy x service model, a
+# degraded grid, the timed policies with blackholes, a heterogeneous
+# grid and ragged padded chunks, with and without the sketch. ``mix =
+# 0.5`` and delays whose products with the retry backoff coefficients
+# are exact keep the comparison with the JAX package on the CPU free of
+# XLA's multiply-add contraction.
+CELL_UPDATE_ARMS = {
+    "paper_default": dict(k_max=2),
+    "policies_iid_timed": dict(k_max=3, policies=(0, 1, 2, 3, 4),
+                               delay=0.75),
+    "policies_x_server_dependent": dict(k_max=2, policies=(0, 1, 2, 3, 4),
+                                        models=(0, 1), mix=0.5, delay=0.5),
+    "degraded": dict(k_max=2, policies=(0, 1, 2, 3, 4),
+                     degraded=(0.1, 4.0, 0.05), delay=0.5),
+    "timed_ragged_blackholes": dict(k_max=3, policies=(3, 4),
+                                    degraded=(0.0, 1.0, 0.2), delay=0.25,
+                                    pad=300),
+    "has_dists": dict(k_max=2, policies=(0, 1, 2), models=(0, 1),
+                      n_dists=3, mix=0.5),
+    "ragged_no_sketch": dict(k_max=2, policies=(0, 2), pad=123, hist=False),
+    "k1_ragged_sketch": dict(k_max=1, policies=(0, 1, 2), pad=200),
+}
+
+
+def synthetic_chunk(seed: int, *, n_cells: int = 12, n_seeds: int = 2,
+                    n_servers: int = 6, steps: int = 1024, k_max: int = 2,
+                    policies=(0,), models=(0,), mix: float = 0.5,
+                    degraded: tuple[float, float, float] | None = None,
+                    delay: float = 0.0, n_dists: int = 1, pad: int = 0,
+                    warmup: int = 100, n_bins: int = 2048,
+                    hist: bool = True):
+    """Injected inputs for one ``cell_update`` chunk, drawn with numpy
+    from ``seed``: ``(args, static)`` where ``args`` maps the names of
+    ``CELL_UPDATE_ARGS`` to numpy arrays and ``static`` holds the keyword
+    flags (``n_bins``, ``has_shared``, ``has_timed``, ``has_dists``).
+
+    Cells cycle through ``policies`` / ``models`` codes, k = 1 + c %
+    k_max copies, seed row c % n_seeds and dist table c % n_dists.
+    ``degraded=(p_slow, slow_factor, p_fail)`` appends the per-copy
+    degradation uniforms; the last ``pad`` steps are zero-padded the way
+    the engine pads a ragged chunk. The carry starts from nonzero values
+    (free times of both signs, a running sum and histogram)."""
+    rng = np.random.default_rng(seed)
+    C, S, N, T = n_cells, n_seeds, n_servers, steps
+    c = np.arange(C)
+    policy = np.asarray(policies, np.int32)[c % len(policies)]
+    model = np.asarray(models, np.int32)[c % len(models)]
+    has_shared = bool((model == 1).any())
+    has_timed = bool(np.isin(policy, (3, 4)).any())
+    valid = (np.arange(T) < T - pad).astype(np.float32)
+    gaps = rng.exponential(size=(S, T)).astype(np.float32) * valid
+    cum = np.cumsum(gaps, axis=1, dtype=np.float32)
+    first = rng.integers(0, N, size=(S, T, 1))
+    offs = np.argsort(rng.random((S, T, N - 1)), axis=2)[..., :k_max - 1]
+    servers = (np.concatenate([first, (first + 1 + offs) % N], axis=2)
+               * valid[None, :, None]).astype(np.int32)
+    n_svc = k_max + int(has_shared) + (k_max if degraded else 0)
+    services = rng.exponential(size=(n_dists * S, T, n_svc)).astype(
+        np.float32)
+    if degraded:
+        services[..., -k_max:] = rng.random((n_dists * S, T, k_max))
+    services *= valid[None, :, None]
+    kc = 1 + c % k_max
+    p_slow, slow_factor, p_fail = degraded or (0.0, 1.0, 0.0)
+
+    def per_cell(v):
+        return np.full(C, v, np.float32)
+
+    args = dict(
+        free=rng.uniform(-0.5, 0.5, (C, N)).astype(np.float32),
+        ssum=rng.uniform(0.0, 100.0, C).astype(np.float32),
+        comp=rng.uniform(-1e-6, 1e-6, C).astype(np.float32),
+        cnt=rng.integers(0, 100, C).astype(np.float32),
+        hist=(rng.integers(0, 3, (C, n_bins)).astype(np.float32) if hist
+              else np.zeros((0, 0), np.float32)),
+        cum=cum, valid=valid,
+        warm=(valid * (np.arange(T) >= warmup)).astype(np.float32),
+        servers=servers, services=services,
+        seed_idx=(c % S).astype(np.int32),
+        rates=(N * rng.uniform(0.05, 0.3, C)).astype(np.float32),
+        k_mask=np.arange(k_max)[None, :] < kc[:, None],
+        ovh=np.where(kc > 1, 0.05, 0.0).astype(np.float32),
+        policy_code=policy, model_code=model, mix=per_cell(mix),
+        p_slow=per_cell(p_slow), slow_factor=per_cell(slow_factor),
+        p_fail=per_cell(p_fail), delay=per_cell(delay),
+        svc_idx=((c % n_dists) * S + c % S).astype(np.int32))
+    static = dict(n_bins=n_bins, has_shared=has_shared, has_timed=has_timed,
+                  has_dists=n_dists > 1)
+    return args, static

@@ -1,0 +1,47 @@
+"""Kernel-mode dispatch shared by the ``ops`` modules.
+
+Modes (the ``kernel=`` knob of ``repro_torch.core.queueing.run``):
+
+  ``"auto"``  the CUDA kernel for CUDA tensors, the plain PyTorch
+              version for CPU tensors.
+  ``"on"``    the CUDA kernel; CPU tensors raise.
+  ``"off"``   the plain PyTorch version on any device — an explicit
+              request, used by the tests and by ``chip_smoke.py`` to
+              hold a kernel against its plain version.
+
+There is no fallback: a CUDA tensor under ``"auto"``/``"on"`` launches
+the kernel, and a kernel that does not build or launch raises.
+"""
+from __future__ import annotations
+
+import torch
+
+KERNEL_MODES = ("auto", "on", "off")
+
+
+def check_mode(kernel: str) -> str:
+    if kernel not in KERNEL_MODES:
+        raise ValueError(
+            f"kernel must be one of {KERNEL_MODES}, got {kernel!r}")
+    return kernel
+
+
+def use_kernel(kernel: str, *tensors: torch.Tensor) -> bool:
+    """Whether this call launches the CUDA kernel (see the module note).
+    All ``tensors`` must share one device."""
+    check_mode(kernel)
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors span several devices: {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if kernel == "off":
+        return False
+    if dev.type == "cuda":
+        return True
+    if dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    if kernel == "on":
+        raise RuntimeError(
+            "kernel='on' needs CUDA tensors; the CUDA kernels do not run "
+            "on the CPU (kernel='auto' or 'off' takes the plain version)")
+    return False

@@ -1,10 +1,17 @@
 """PyTorch port of the ``repro`` reproduction of "Low latency via redundancy".
 
-The JAX package ``repro`` is the reference; this package runs the same
-sweep engine (``core.queueing.run``) and threshold estimators
-(``core.threshold``) on an NVIDIA H100 through hand-written CUDA
-kernels (``kernels.cell_update``, ``kernels.hist_sketch``). It imports
-torch and numpy only — never JAX, and nothing of ``repro``.
+The JAX package ``repro`` is the reference; this package runs on an
+NVIDIA H100 through hand-written CUDA kernels:
+
+  * the sweep engine (``core.queueing.run``) and threshold estimators
+    (``core.threshold``), through ``kernels.cell_update`` and
+    ``kernels.hist_sketch``;
+  * hedged LM serving of gemma2-2b (``launch.serve``: ``serving.engine``
+    replicas behind ``serving.scheduler``, the model in ``models``),
+    through ``kernels.flash_attention`` (prefill) and
+    ``kernels.decode_attention`` (decode).
+
+It imports torch and numpy only — never JAX, and nothing of ``repro``.
 
 Entry points take ``device=`` and default to ``"cuda"``; pass
 ``device="cpu"`` to run the plain PyTorch path, which is what the CPU

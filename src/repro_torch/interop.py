@@ -1,11 +1,19 @@
-"""Carry the JAX package's numpy state into the port.
+"""Carry the JAX package's numpy state into the port, and back.
 
-The port has no weights; what crosses from the reference is state: a
-chunk's sampled inputs (``unit_gaps`` or ``cum``, ``servers``,
-``services``), the per-cell carry (``free``, ``ssum``, ``comp``,
-``cnt``, ``hist``) and the cell-plan coordinates. Everything arrives as
-numpy arrays (the tests pull them out of JAX with ``np.asarray``), so
-this module needs neither JAX nor ``repro``.
+What crosses from the reference: a chunk's sampled inputs
+(``unit_gaps`` or ``cum``, ``servers``, ``services``), the per-cell
+carry (``free``, ``ssum``, ``comp``, ``cnt``, ``hist``), the cell-plan
+coordinates, an LM's weights (``lm_params_from_numpy``) and its decode
+caches (``lm_cache_from_numpy`` / ``lm_cache_to_numpy``). Everything
+arrives as numpy arrays (the tests pull them out of JAX with
+``np.asarray``), so this module needs neither JAX nor ``repro``.
+
+bf16: ``np.asarray`` of a JAX bf16 array has the ``ml_dtypes``
+``bfloat16`` dtype, which ``torch.from_numpy`` refuses. ``to_tensor``
+moves its bits through a ``uint16`` view, and ``to_numpy`` hands a bf16
+tensor back as ``bfloat16`` where numpy knows that dtype (``ml_dtypes``
+is loaded, as JAX loads it) and as exact float32 values where it does
+not. Neither imports ``ml_dtypes``.
 
 ``NumpySampler`` replays pre-drawn numpy chunks through the port's
 ``queueing._run_engine``, so one set of draws can be pushed through
@@ -31,9 +39,25 @@ def to_tensor(x, device="cuda") -> torch.Tensor:
     entry point of the port (``repro_torch.device.resolve_device``)."""
     device = resolve_device(device)
     a = np.array(x, order="C")  # a writable copy the tensor may own
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(
+            torch.bfloat16).to(device=device)
     if a.dtype not in _DTYPES:
         raise TypeError(f"unsupported dtype {a.dtype}")
     return torch.from_numpy(a).to(device=device)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array of the same dtype and bits; bf16 as
+    numpy ``bfloat16`` where numpy knows it, else as float32 (exact)."""
+    t = t.detach().cpu()
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    try:
+        bf16 = np.dtype("bfloat16")
+    except TypeError:
+        return t.to(torch.float32).numpy()
+    return t.view(torch.uint16).numpy().view(bf16)
 
 
 def carry_from_numpy(free, ssum, comp, cnt, hist, device="cuda"):
@@ -186,3 +210,89 @@ def synthetic_chunk(seed: int, *, n_cells: int = 12, n_seeds: int = 2,
     static = dict(n_bins=n_bins, has_shared=has_shared, has_timed=has_timed,
                   has_dists=n_dists > 1)
     return args, static
+
+
+# ---------------------------------------------------------------------------
+# LM weights and caches
+# ---------------------------------------------------------------------------
+
+
+def _layer_index(cfg, group: str, i: int, r: int = 0) -> int:
+    """Layer-order index of the JAX tree's ``prefix[i]``, ``blocks/pos{i}``
+    at repeat ``r``, or ``suffix[i]``."""
+    n_pre, n_pat = len(cfg.prefix), len(cfg.pattern)
+    if group == "prefix":
+        return i
+    if group == "blocks":
+        return n_pre + r * n_pat + i
+    return n_pre + cfg.repeats * n_pat + i
+
+
+def _flat(tree, prefix: str = ""):
+    """(dotted path, leaf) pairs of a nested dict."""
+    if isinstance(tree, dict):
+        for key, sub in tree.items():
+            yield from _flat(sub, f"{prefix}{key}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def _per_layer(tree, cfg):
+    """The JAX tree's ``prefix``/``blocks``/``suffix`` groups as (layer
+    index, {dotted path: leaf}) pairs, unstacking ``blocks/pos{i}`` along
+    its leading repeats axis."""
+    for i, sub in enumerate(tree.get("prefix", [])):
+        yield _layer_index(cfg, "prefix", i), dict(_flat(sub))
+    for name, sub in tree.get("blocks", {}).items():
+        i = int(name[len("pos"):])
+        stacked = dict(_flat(sub))
+        for r in range(cfg.repeats):
+            yield _layer_index(cfg, "blocks", i, r), {
+                k: np.asarray(v)[r] for k, v in stacked.items()}
+    for i, sub in enumerate(tree.get("suffix", [])):
+        yield _layer_index(cfg, "suffix", i), dict(_flat(sub))
+
+
+def lm_params_from_numpy(params, cfg, device="cuda") -> dict:
+    """The JAX ``lm.init`` pytree (numpy leaves) as the state dict of the
+    port's ``models.lm.LM``, bit for bit: ``blocks.{layer}.<path>`` in
+    layer order (prefix, then repeat r x pattern position i, then
+    suffix), every other leaf under its own dotted path."""
+    state = {}
+    for layer, sub in _per_layer(params, cfg):
+        for path, leaf in sub.items():
+            state[f"blocks.{layer}.{path}"] = to_tensor(leaf, device)
+    for key, sub in params.items():
+        if key not in ("prefix", "blocks", "suffix"):
+            for path, leaf in _flat(sub, f"{key}."):
+                state[path] = to_tensor(leaf, device)
+    return state
+
+
+def lm_cache_from_numpy(cache, cfg, device="cuda") -> list[dict]:
+    """The JAX ``decode.init_cache``/``prefill`` cache tree (numpy
+    leaves) as the port's per-layer cache list."""
+    out = [None] * cfg.n_layers
+    for layer, sub in _per_layer(cache, cfg):
+        out[layer] = {k: to_tensor(v, device) for k, v in sub.items()}
+    return out
+
+
+def lm_cache_to_numpy(cache, cfg) -> dict:
+    """The port's per-layer cache list as the JAX package's cache tree
+    (``prefix`` / ``blocks/pos{i}`` stacked over repeats / ``suffix``)
+    with numpy leaves."""
+    def leaves(layer):
+        return {k: to_numpy(v) for k, v in cache[layer].items()}
+
+    tree = {"prefix": [leaves(_layer_index(cfg, "prefix", i))
+                       for i in range(len(cfg.prefix))],
+            "suffix": [leaves(_layer_index(cfg, "suffix", i))
+                       for i in range(len(cfg.suffix))],
+            "blocks": {}}
+    for i in range(len(cfg.pattern)):
+        per = [leaves(_layer_index(cfg, "blocks", i, r))
+               for r in range(cfg.repeats)]
+        tree["blocks"][f"pos{i}"] = {k: np.stack([p[k] for p in per])
+                                     for k in per[0]}
+    return tree

@@ -7,9 +7,11 @@ with a plain C interface (no PyTorch headers, so a build takes seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
          -shared -Xcompiler -fPIC -Xptxas -v -o lib<name>-<digest>.so <name>.cu
 
-``--fmad=false`` is part of the bit contract: the plain PyTorch versions
-round every multiply and add on its own, and a contracted ``a*b+c``
-would not. The libraries land in ``repro_torch/build/`` (git-ignored),
+``--fmad=false`` is part of the bit contract of ``cell_update`` and
+``hist_accum``: their plain PyTorch versions round every multiply and add
+on its own, and a contracted ``a*b+c`` would not. The attention kernels,
+held to their plain versions by a bf16 tolerance, are built with the
+same flags. The libraries land in ``repro_torch/build/`` (git-ignored),
 named by a digest of the sources and flags, so an edited source
 rebuilds and an unchanged one loads as built. ``build_all`` starts one
 ``nvcc`` per missing library, all at once, and waits for them together;
@@ -29,7 +31,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-SOURCES = ("hist_sketch", "cell_update")
+SOURCES = ("hist_sketch", "cell_update", "flash_attention",
+           "decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

@@ -34,11 +34,13 @@ nonzero:
      head) the error is at most 2^-6 of the row's largest value, and with
      standard-normal inputs at most 2e-2 anywhere; time kernel, plain
      version and ``scaled_dot_product_attention`` (which has no softcap)
-     at S = 4608;
+     at S = 4608; and at recurrentgemma-9b's head shape (H=16 over one KV
+     head, hd=256, window 2048, no softcap) at S = 16 and 2560;
   6. the same for ``decode_attention``: the served path's dense cache,
      a dense cache with a window and positions past ``pos``, a ring
      before and after it wraps, a dense cache of 4672 slots and a ring of
      4096 at pos = 5000; the device time of its two passes from a trace;
+     recurrentgemma-9b's ring of 2048 at pos 23 and 2575;
   7. gemma2-2b at full width and depth (26 layers, random weights from the
      port's own init on the card): a 4608-token prompt, longer than the
      window, then 16 teacher-forced decode steps. Once with every
@@ -53,7 +55,26 @@ nonzero:
   8. the LM main path through its user entry point:
      ``repro_torch.launch.serve.main`` serves 8 requests of gemma2-2b on
      2 hedged replicas (``--max-k 2``), with the attention kernels' launch
-     counts read around exactly that run.
+     counts read around exactly that run;
+  9. hold the ``ssd_scan`` kernel against its plain version at
+     mamba2-370m's shape (Q=256, H=32, P=64, N=128), 1 and 16 chunks,
+     standard-normal inputs and inputs as the model makes them, and a
+     padded chunk (a 16-token prompt): every element within 5e-3 + 5e-3
+     |plain| (tests/test_kernels.py); time both and the bound at 16 chunks;
+ 10. mamba2-370m at full width and depth (48 layers): a 4096-token prompt
+     (16 chunks) and 16 decode steps, as phase 7 (every ``ssd_scan`` call
+     also checked against its plain version; logits with the kernel within
+     twice the plain path's float32-vs-bf16 distance, the float32 path
+     being the whole model widened with ``.float()``); then serve 8
+     requests on 2 hedged replicas through ``launch.serve.main`` with the
+     launch counts read around exactly that run;
+ 11. hold the ``rglru_scan`` kernel against its plain version bit for bit
+     at (1, 4096, 4096) and ragged lengths; time both and the bound;
+ 12. recurrentgemma-9b at full width and depth (38 layers, 8.5B
+     parameters): a 2560-token prompt (past the window of 2048) and 16
+     decode steps, as phase 10 with ``rglru_scan``, ``flash_attention`` and
+     ``decode_attention`` checked per call; then serve 8 requests. Each
+     model is freed before the next is made.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Needs CUDA and the repository's
@@ -141,7 +162,7 @@ def cuda_ms(fn, reps: int, label: str) -> float:
     return ms
 
 
-def traced(fn) -> dict:
+def traced(fn, top: int = 4) -> dict:
     """Run ``fn()`` once under ``torch.profiler`` and read the device's
     share of the host window: the union of the device's kernel, copy and
     set intervals over the window from the call to the end of its
@@ -175,11 +196,11 @@ def traced(fn) -> dict:
     for e in dev_events:
         by_name[e.name] = (by_name.get(e.name, 0.0)
                            + e.time_range.end - e.time_range.start)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    busiest = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     wall = (w1 - w0) * 1e-6
     return {"wall_s": wall, "busy_s": busy * 1e-6 if spans else None,
             "idle_share": 1.0 - busy / (w1 - w0) if spans else None,
-            "top_device_ms": {n[:60]: t * 1e-3 for n, t in top}}
+            "top_device_ms": {n[:60]: t * 1e-3 for n, t in busiest}}
 
 
 
@@ -289,6 +310,24 @@ def attention_kernels(dev) -> dict:
             f"{plain} ms, scaled_dot_product_attention (no softcap) {lib} "
             f"ms, bound {bms} ms ({by}; {pairs} live pairs)")
 
+    # recurrentgemma-9b's local layers: 16 query heads over one KV head,
+    # head_dim 256, window 2048, no softcap; its served prompt and a prompt
+    # past the window
+    mq_h, mq_w = 16, 2048
+    for s, qs in ((16, 1), (2560, 1), (2560, 8)):
+        q, k, v = qs * bf16(b, s, mq_h, hd), bf16(b, s, 1, hd), \
+            bf16(b, s, 1, hd)
+        got = fa_ops.flash_attention(q, k, v, window=mq_w, kernel="on")
+        want = fa_ops.flash_attention(q, k, v, window=mq_w, kernel="off")
+        err = check_attention(f"flash_attention MQA S={s}", got, want,
+                              absolute=qs == 1)
+        if qs == 1:
+            fa_err = max(fa_err, err)
+        log(f"[5] flash_attention H={mq_h} KV=1 S={s} window={mq_w} no "
+            f"softcap, query scale {qs}: max abs err vs plain {err} "
+            f"(largest |out| {float(want.float().abs().max())}, worst row at "
+            f"{row_err(got, want)[1]} of its allowance)")
+
     # ---------------------------------------------------------------- 6
     da_err, da = 0.0, {}
     last = PROMPT + DECODE_STEPS - 1
@@ -350,6 +389,24 @@ def attention_kernels(dev) -> dict:
             f"ms, plain {plain} ms, scaled_dot_product_attention (no "
             f"softcap) {lib} ms, bound {bms} ms ({by}); device ms per call "
             f"by kernel (trace of 50 calls) {json.dumps(per_call)}")
+    for pos, qs in ((23, 1), (2575, 1), (2575, 8)):
+        q, k, v = qs * bf16(b, 1, mq_h, hd), bf16(b, mq_w, 1, hd), \
+            bf16(b, mq_w, 1, hd)
+        s = np.arange(mq_w)
+        slots = torch.from_numpy(np.where(
+            s <= pos, pos - (pos - s) % mq_w, -1).astype(np.int32)).to(dev)
+        got = da_ops.decode_attention(q, k, v, slots, pos, window=mq_w,
+                                      kernel="on")
+        want = da_ops.decode_attention(q, k, v, slots, pos, window=mq_w,
+                                       kernel="off")
+        err = check_attention(f"decode_attention MQA pos={pos}", got, want,
+                              absolute=qs == 1)
+        if qs == 1:
+            da_err = max(da_err, err)
+        log(f"[6] decode_attention H={mq_h} KV=1 ring of {mq_w} at pos={pos} "
+            f"no softcap, query scale {qs}: max abs err vs plain {err} "
+            f"(largest |out| {float(want.float().abs().max())}, worst row at "
+            f"{row_err(got, want)[1]} of its allowance)")
     return {"flash_attention": dict(fa[None], max_abs_err=fa_err),
             "decode_attention": dict(da["dense"], max_abs_err=da_err)}
 
@@ -381,34 +438,48 @@ def float32_attention():
             da_ref
 
 
-@contextlib.contextmanager
-def checked_against_plain(worst: dict):
-    """Every attention op called with ``kernel="on"`` inside also runs
-    its plain version on the same inputs; ``worst[name]`` collects
-    (calls, max abs error, worst row's share of its allowance) for
-    ``check_attention``'s gates. The kernel's output is what the model
-    gets."""
+def _checked_ops() -> dict:
+    """Per kernel: the ops module and function the model calls, and the
+    gate function that compares its output with the plain version's."""
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rglru_scan import ops as scan_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    return {"flash_attention": (fa_ops, "flash_attention", row_err),
+            "decode_attention": (da_ops, "decode_attention", row_err),
+            "ssd_scan": (ssd_ops, "ssd_intra_chunk", ssd_err),
+            "rglru_scan": (scan_ops, "linear_scan", scan_err)}
 
-    fa, da = fa_ops.flash_attention, da_ops.decode_attention
 
-    def wrap(name, op):
+@contextlib.contextmanager
+def checked_against_plain(worst: dict,
+                          names=("flash_attention", "decode_attention")):
+    """Every op of ``names`` called with ``kernel="on"`` inside also runs
+    its plain version on the same inputs; ``worst[name]`` collects
+    (calls, max abs error, worst share of the allowance) of the op's gate
+    (``row_err``, ``ssd_err``, ``scan_err``). The kernel's output is what
+    the model gets."""
+    every = _checked_ops()
+    ops = {name: every[name] for name in names}
+
+    def wrap(name, op, gate):
         def call(*args, kernel="auto", **kw):
             out = op(*args, kernel=kernel, **kw)
             if kernel == "on":
-                err, ratio = row_err(out, op(*args, kernel="off", **kw))
+                err, ratio = gate(out, op(*args, kernel="off", **kw))
                 n, e0, r0 = worst.get(name, (0, 0.0, 0.0))
                 worst[name] = (n + 1, max(e0, err), max(r0, ratio))
             return out
         return call
 
-    fa_ops.flash_attention = wrap("flash_attention", fa)
-    da_ops.decode_attention = wrap("decode_attention", da)
+    saved = {name: getattr(mod, attr) for name, (mod, attr, _) in ops.items()}
+    for name, (mod, attr, gate) in ops.items():
+        setattr(mod, attr, wrap(name, saved[name], gate))
     try:
         yield
     finally:
-        fa_ops.flash_attention, da_ops.decode_attention = fa, da
+        for name, (mod, attr, _) in ops.items():
+            setattr(mod, attr, saved[name])
 
 
 def lm_full(dev) -> None:
@@ -524,6 +595,334 @@ def lm_full(dev) -> None:
         raise AssertionError("phase 7: " + "; ".join(failed))
 
 
+SSD_TOL = 5e-3      # tests/test_kernels.py: |err| <= 5e-3 + 5e-3 |plain|
+SSD_SHAPE = (256, 32, 64, 128)  # mamba2-370m: chunk Q, heads H, P, d_state N
+MAMBA_PROMPT = 4096  # 16 chunks of 256
+RG_PROMPT = 2560     # past recurrentgemma-9b's window of 2048
+SCAN_W = 4096        # recurrentgemma-9b's lru_width
+
+
+def ssd_err(got, want) -> tuple[float, float]:
+    """(max abs error, largest ratio of an element's error to its
+    allowance ``SSD_TOL + SSD_TOL * |plain|``) over both outputs of
+    ``ssd_intra_chunk``."""
+    err, ratio = 0.0, 0.0
+    for g, w in zip(got, want):
+        e = (g - w).abs()
+        err = max(err, float(e.max()))
+        ratio = max(ratio, float((e / (SSD_TOL + SSD_TOL * w.abs())).max()))
+    return err, ratio
+
+
+def scan_err(got, want) -> tuple[float, float]:
+    """(max abs error, 0 if bit-equal else inf) of ``linear_scan``."""
+    import torch
+    return float((got - want).abs().max()), (0.0 if torch.equal(got, want)
+                                             else math.inf)
+
+
+def ssd_inputs(dev, n_chunks: int, model_like: bool, valid: int | None,
+               seed: int):
+    """Inputs of ``ssd_intra_chunk`` at mamba2-370m's shape. Standard
+    normal x, B, C and dt = softplus(z), a = -exp(0.2 z); or as the model
+    makes them: x, B, C = silu(z), dt = softplus(z), a = -exp(a_log) with
+    the init's a_log = 0. ``valid``: rows of a prompt in one padded chunk
+    (dt = 0 and x, B, C = 0 past them, as ``ssd_chunked`` pads)."""
+    import torch
+    import torch.nn.functional as F
+    g = torch.Generator(dev).manual_seed(seed)
+    q, h, p, n = SSD_SHAPE
+
+    def z(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    xc, bc, cc = z(1, n_chunks, q, h, p), z(1, n_chunks, q, n), \
+        z(1, n_chunks, q, n)
+    if model_like:
+        xc, bc, cc = F.silu(xc), F.silu(bc), F.silu(cc)
+        a = -torch.ones(h, device=dev)
+    else:
+        a = -torch.exp(0.2 * z(h))
+    dtc = F.softplus(z(1, n_chunks, q, h))
+    if valid is not None:
+        for x in (xc, bc, cc, dtc):
+            x[:, :, valid:] = 0
+    cum = torch.cumsum(dtc * a, dim=2)
+    return xc, bc, cc, dtc, cum
+
+
+def ssd_kernel(dev) -> dict:
+    """Phase 9: ``ssd_scan`` against its plain version at mamba2-370m's
+    shape; times and bound at the 4096-token prefill's 16 chunks."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    worst = 0.0
+    for n_chunks, model_like, valid in ((1, False, None), (16, False, None),
+                                        (1, True, None), (16, True, None),
+                                        (1, True, 16)):
+        args = ssd_inputs(dev, n_chunks, model_like, valid, 9 + n_chunks)
+        got = ssd_ops.ssd_intra_chunk(*args, kernel="on")
+        want = ssd_ops.ssd_intra_chunk(*args, kernel="off")
+        err, ratio = ssd_err(got, want)
+        log(f"[9] ssd_scan {n_chunks} chunk(s) of Q={SSD_SHAPE[0]}, H="
+            f"{SSD_SHAPE[1]}, P={SSD_SHAPE[2]}, N={SSD_SHAPE[3]}, inputs "
+            f"{'as the model makes them' if model_like else 'standard normal'}"
+            f"{f', {valid} valid rows (padded chunk)' if valid else ''}: max "
+            f"abs err vs plain {err}, worst element at {ratio} of its "
+            f"allowance {SSD_TOL} + {SSD_TOL}|plain| (largest |y| "
+            f"{float(want[0].abs().max())}, |state| "
+            f"{float(want[1].abs().max())})")
+        if not ratio <= 1.0:
+            raise AssertionError(f"ssd_scan differs from its plain version: "
+                                 f"worst element at {ratio} of its allowance")
+        worst = max(worst, err)
+        if n_chunks == 1 and valid is None:
+            # both against the plain version in float64: the kernel's own
+            # rounding, whether or not it matches the plain version's bits
+            exact = ssd_ops.ssd_intra_chunk_ref(*(t.double() for t in args))
+
+            def dist(outs):
+                return [float((o - e).abs().max()) for o, e in zip(outs, exact)]
+
+            log(f"[9]   against the plain version in float64: kernel "
+                f"{dist(got)}, plain {dist(want)} (y, states); kernel "
+                f"bit-equal to plain "
+                f"{all(bool((g == w).all()) for g, w in zip(got, want))}")
+    args = ssd_inputs(dev, 16, True, None, 99)
+    ms = cuda_ms(lambda: ssd_ops.ssd_intra_chunk(*args, kernel="on"), 20,
+                 "ssd_scan")
+    plain = cuda_ms(lambda: ssd_ops.ssd_intra_chunk(*args, kernel="off"), 5,
+                    "ssd_scan plain")
+    bc_n, (q, h, p, n) = 16, SSD_SHAPE
+    pairs = q * (q + 1) // 2
+    # C B^T once per chunk over the causal half; per head the weights (a
+    # subtraction, exp and two products a pair), W X and the state product
+    n_ops = (bc_n * pairs * n * 2 + bc_n * h * pairs * (p * 2 + 4)
+             + bc_n * h * q * p * n * 2)
+    n_bytes = 4 * (2 * bc_n * q * h * p + 2 * bc_n * q * n + 2 * bc_n * q * h
+                   + bc_n * h * p * n)
+    bms, by = bound(n_bytes, n_ops, F32_OPS_PER_S)
+    log(f"[9] ssd_scan at 16 chunks: kernel {ms} ms, plain {plain} ms, bound "
+        f"{bms} ms ({by}; {n_ops} operations, {n_bytes} bytes); no single "
+        f"PyTorch call computes it")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                library_ms=None, max_abs_err=worst)
+
+
+def scan_kernel(dev) -> dict:
+    """Phase 11: ``rglru_scan`` against its plain version, bit for bit, at
+    recurrentgemma-9b's width; times and bound at (1, 4096, 4096)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rglru_scan import ops as scan_ops
+
+    g = torch.Generator(dev).manual_seed(11)
+    for shape in ((1, 4096, SCAN_W), (1, 2573, SCAN_W), (2, 77, SCAN_W)):
+        # a = exp(-8 softplus(2) sigmoid(z)) and b ~ sqrt(1 - a^2) z, as the
+        # gates make them
+        a = torch.exp(-8.0 * F.softplus(torch.tensor(2.0)) * torch.sigmoid(
+            torch.randn(shape, generator=g, device=dev)))
+        b = torch.sqrt(1 - a * a) * torch.randn(shape, generator=g, device=dev)
+        got = scan_ops.linear_scan(a, b, kernel="on")
+        want = scan_ops.linear_scan(a, b, kernel="off")
+        err, ratio = scan_err(got, want)
+        log(f"[11] rglru_scan {shape}: bit-equal to its plain version "
+            f"{ratio == 0.0} (max abs diff {err}; largest |h| "
+            f"{float(want.abs().max())})")
+        if ratio != 0.0:
+            raise AssertionError(f"rglru_scan {shape} is not bit-equal to its "
+                                 f"plain version (max abs diff {err})")
+        if shape[1] == 4096:
+            ms = cuda_ms(lambda: scan_ops.linear_scan(a, b, kernel="on"), 20,
+                         "rglru_scan")
+            plain = cuda_ms(lambda: scan_ops.linear_scan(a, b, kernel="off"),
+                            2, "rglru_scan plain")
+            n = a.numel()
+            bms, by = bound(3 * 4 * n, 2 * n, F32_OPS_PER_S)
+            log(f"[11] rglru_scan {shape}: kernel {ms} ms, plain {plain} ms, "
+                f"bound {bms} ms ({by}); no single PyTorch call computes it")
+            rec = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                       library_ms=None, max_abs_err=0.0)
+    return rec
+
+
+def recurrent_full(dev, arch: str, phase: int, prompt: int,
+                   kernels: tuple[str, ...]) -> None:
+    """Phases 10 and 12: ``arch`` at full width and depth (random weights
+    from the port's own init on the card), a ``prompt``-token prefill and
+    16 teacher-forced decode steps. Once with every call of ``kernels``
+    also run through its plain version on the same inputs (the gates of
+    phases 5, 6, 9 and 11), then with the kernels and their plain
+    versions, and last with the plain versions on the model widened to
+    float32: the kernels' logits within twice the float32 path's distance
+    from the plain path at every step. Prefill and per-token decode
+    times, the device's idle share during decode, the engine's greedy
+    tokens against repeated prefill (before the widening). Runs every
+    check before it raises."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode, lm
+
+    tag = f"[{phase}]"
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    model = lm.init(torch.Generator(dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"{tag} {arch}: {cfg.n_layers} layers {cfg.layer_kinds[:3]}..., "
+        f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, {n_params} "
+        f"parameters (param_count {cfg.param_count}), init "
+        f"{time.perf_counter() - t0}s, "
+        f"{torch.cuda.memory_allocated() / 2**30} GiB allocated")
+    rng = np.random.default_rng(phase)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (1, prompt + DECODE_STEPS))).to(dev)
+    max_len = prompt + DECODE_STEPS
+    runs, worst, failed = {}, {}, []
+
+    def run(mode: str) -> None:
+        kernel = "off" if mode.startswith("off") else "on"
+
+        def ctx():
+            return (checked_against_plain(worst, kernels)
+                    if mode == "checked" else contextlib.nullcontext())
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ctx():
+            logits, cache = decode.prefill(model, toks[:, :prompt], max_len,
+                                           kernel=kernel)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        steps = [logits]
+        t0 = time.perf_counter()
+        with ctx():
+            for i in range(DECODE_STEPS):
+                logits, cache = decode.decode_step(
+                    model, cache, toks[:, prompt + i:prompt + i + 1],
+                    prompt + i, kernel=kernel)
+                steps.append(logits)
+        torch.cuda.synchronize()
+        t_dec = (time.perf_counter() - t0) / DECODE_STEPS
+        runs[mode] = torch.stack(steps)[:, 0]
+        log(f"{tag} {mode}: prefill of {prompt} tokens {t_pre * 1e3} ms, "
+            f"decode {t_dec * 1e3} ms per token ({DECODE_STEPS} steps)")
+
+    for mode in ("checked", "on", "off", "on", "off"):
+        run(mode)
+    _, cache = decode.prefill(model, toks[:, :prompt], max_len, kernel="on")
+
+    def decode_run(c=cache):
+        for i in range(DECODE_STEPS):
+            _, c = decode.decode_step(model, c,
+                                      toks[:, prompt + i:prompt + i + 1],
+                                      prompt + i, kernel="on")
+
+    log(f"{tag} trace of the prefill (kernels): " + json.dumps(traced(
+        lambda: decode.prefill(model, toks[:, :prompt], max_len,
+                               kernel="on"), top=8)))
+    log(f"{tag} trace of {DECODE_STEPS} decode steps (kernels): "
+        f"{json.dumps(traced(decode_run))}")
+    engine_check(model, cfg, dev, rng, failed, tag)
+    model.float()  # in place, last: the plain path in float32
+    run("off32")
+    for name in kernels:
+        n, err, ratio = worst.get(name, (0, 0.0, 0.0))
+        log(f"{tag} {name} at every layer and step of the kernel run ({n} "
+            f"calls), against its plain version on the same inputs: max abs "
+            f"err {err}, worst at {ratio} of its allowance")
+        if n == 0 or not ratio <= 1.0:
+            failed.append(f"{name} over the model: {n} calls, worst at "
+                          f"{ratio} of its allowance")
+    on, off, off32 = runs["on"], runs["off"], runs["off32"]
+    if tuple(on.shape) != (DECODE_STEPS + 1, cfg.vocab_size) or \
+            not all(bool(torch.isfinite(runs[m]).all())
+                    for m in ("checked", "on", "off", "off32")):
+        raise AssertionError(f"{arch}: logits of shape {tuple(on.shape)} or "
+                             f"not finite")
+    diffs = (on - off).abs().amax(dim=-1).tolist()
+    floor = (off32 - off).abs().amax(dim=-1).tolist()
+    bound_ = 2 * max(floor)
+    log(f"{tag} max abs logit difference, prefill then each decode step: "
+        f"kernels vs plain {json.dumps(diffs)}; plain in float32 vs plain "
+        f"{json.dumps(floor)}; bound 2 x {max(floor)} = {bound_}; largest "
+        f"|logit| {float(on.abs().max())}")
+    if max(diffs) > bound_:
+        failed.append(f"{arch}: kernels' and plain path's logits differ by "
+                      f"{max(diffs)} > {bound_}")
+    for name, x in (("kernels", on), ("float32 plain", off32)):
+        agree = float((x.argmax(-1) == off.argmax(-1)).float().mean())
+        log(f"{tag} greedy tokens of the {name} path agree with the plain "
+            f"path's at {agree} of the {DECODE_STEPS + 1} positions")
+    del model, cache, runs
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"phase {phase}: " + "; ".join(failed))
+
+
+def engine_check(model, cfg, dev, rng, failed: list, tag: str) -> None:
+    """The engine's greedy tokens (prefill, then decode from its cache)
+    equal repeated-prefill argmax."""
+    import torch
+
+    from repro_torch.models import decode
+    from repro_torch.serving.engine import InferenceEngine
+
+    eng = InferenceEngine(cfg, model, max_len=128, name="check", device=dev)
+    prompt_ids = rng.integers(0, cfg.vocab_size, 16)
+    out = eng.generate(prompt_ids, max_new_tokens=4)
+    cur = list(prompt_ids)
+    for i in range(4):
+        logits, _ = decode.prefill(model, torch.tensor([cur], device=dev),
+                                   128)
+        nxt = int(logits.argmax(-1)[0])
+        if nxt != int(out[i]):
+            failed.append(f"{cfg.name}: engine token {i} is {out[i]}, "
+                          f"repeated prefill gives {nxt}")
+            break
+        cur.append(nxt)
+    log(f"{tag} engine greedy tokens {out.tolist()}, repeated-prefill argmax "
+        f"{cur[len(prompt_ids):]}")
+
+
+def serve_path(arch: str, phase: int, counters: dict) -> dict:
+    """The served path of ``arch`` through its user entry point:
+    ``launch.serve.main`` answers 8 requests on 2 hedged replicas, with
+    every kernel's launch count set to 0 just before and read just after.
+    Returns the counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import serve
+
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served = serve.main(["--arch", arch, "--replicas", "2", "--max-k", "2",
+                         "--requests", "8"])
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    lat = served["latency_s"]
+    log(f"[{phase}] serve {arch}, 2 replicas, max-k 2, 8 requests of 16 "
+        f"prompt tokens and 8 new tokens: {t_serve}s wall (model init "
+        f"included); latency mean {float(lat.mean()) * 1e3} ms, p50 "
+        f"{float(np.percentile(lat, 50)) * 1e3} ms, p99 "
+        f"{float(np.percentile(lat, 99)) * 1e3} ms; stats "
+        f"{json.dumps(served['stats'])}; kernel launches "
+        f"{json.dumps(launches)}")
+    if lat.shape != (8,) or not np.all(np.isfinite(lat)) or \
+            served["stats"]["total"] != 8:
+        raise AssertionError(f"serve {arch} answered {lat.shape} requests, "
+                             f"stats {served['stats']}")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -555,6 +954,8 @@ def main() -> int:
 
     from repro_torch.kernels.decode_attention import kernel as da_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.rglru_scan import kernel as scan_kernel_mod
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel_mod
     from repro_torch.launch import serve
 
     check_imports()
@@ -892,6 +1293,30 @@ def main() -> int:
     if min(launches[k] for k in attn) <= 0:
         raise AssertionError(f"an attention kernel of the served path never "
                              f"launched: {launches}")
+
+    # ------------------------------------------------------------ 9, 10
+    counters = {"flash_attention": fa_kernel.flash_attention_cuda,
+                "decode_attention": da_kernel.decode_attention_cuda,
+                "ssd_scan": ssd_kernel_mod.ssd_intra_chunk_cuda,
+                "rglru_scan": scan_kernel_mod.linear_scan_cuda}
+    recs = {"ssd_scan": ssd_kernel(dev)}
+    recurrent_full(dev, "mamba2-370m", 10, MAMBA_PROMPT, ("ssd_scan",))
+    served = serve_path("mamba2-370m", 10, counters)
+    if served["ssd_scan"] <= 0:
+        raise AssertionError(f"ssd_scan never launched on mamba2-370m's "
+                             f"served path: {served}")
+    launches["ssd_scan"] = served["ssd_scan"]
+
+    # ----------------------------------------------------------- 11, 12
+    recs["rglru_scan"] = scan_kernel(dev)
+    recurrent_full(dev, "recurrentgemma-9b", 12, RG_PROMPT,
+                   ("rglru_scan", "flash_attention", "decode_attention"))
+    served = serve_path("recurrentgemma-9b", 12, counters)
+    if min(served[k] for k in ("rglru_scan", "flash_attention",
+                               "decode_attention")) <= 0:
+        raise AssertionError(f"a kernel of recurrentgemma-9b's served path "
+                             f"never launched: {served}")
+    launches["rglru_scan"] = served["rglru_scan"]
     check_imports()
 
     # ----------------------------------------------------------- output
@@ -926,6 +1351,12 @@ def main() -> int:
             "library_ms": a["library_ms"],
             "library": "torch.nn.functional.scaled_dot_product_attention "
                        "(no softcap)"})
+    for name, line in (("ssd_scan", 62), ("rglru_scan", 46)):
+        record["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": f"src/repro/kernels/{name}/kernel.py:{line}",
+            "launches": launches[name], **recs[name]})
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -42,7 +42,7 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kSplit = kThreads / 2;  // cache slots per CTA, two threads each
-constexpr int kMaxGroup = 8;  // query heads per KV head
+constexpr int kMaxGroup = 16;  // query heads per KV head (recurrentgemma: 16)
 constexpr int kMaxSmem = 232448;  // bytes a Hopper block may use
 
 using bf16 = __nv_bfloat16;
@@ -57,6 +57,9 @@ __device__ float warp_sum(float x) {
   return x;
 }
 
+// MaxG: the group size the arrays are unrolled over (8 or 16, the least
+// that holds G), so gemma2-2b's G = 2 keeps the registers of 8.
+template <int MaxG>
 __global__ void __launch_bounds__(kThreads)
 decode_partial_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v,
@@ -77,8 +80,8 @@ decode_partial_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   extern __shared__ float smem[];
   float* sq = smem;               // [G][hd] queries in float32
-  __shared__ float sc[kMaxGroup][kSplit];  // scores, then probabilities
-  __shared__ float sm[kMaxGroup], sl[kMaxGroup];
+  __shared__ float sc[MaxG][kSplit];  // scores, then probabilities
+  __shared__ float sm[MaxG], sl[MaxG];
 
   for (int i = threadIdx.x; i < G * hd; i += kThreads)
     sq[i] = __bfloat162float(q[(static_cast<size_t>(b) * H + kvh * G) * hd + i]);
@@ -92,9 +95,9 @@ decode_partial_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int s = s0 + j;
     const int p = j < n ? slot_pos[s] : -1;
     const bool live = p >= 0 && p <= pos && (window <= 0 || p > pos - window);
-    float dot[kMaxGroup];  // unrolled over kMaxGroup so it stays in registers
+    float dot[MaxG];  // unrolled over MaxG so it stays in registers
 #pragma unroll
-    for (int g = 0; g < kMaxGroup; ++g) dot[g] = 0.f;
+    for (int g = 0; g < MaxG; ++g) dot[g] = 0.f;
     if (live) {
       const int d0 = half * (hd / 2);
       const bf16* krow =
@@ -107,13 +110,13 @@ decode_partial_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = 0; e < 8; ++e) {
           const float kd = __bfloat162float(kv8[e]);
 #pragma unroll
-          for (int g = 0; g < kMaxGroup; ++g)
+          for (int g = 0; g < MaxG; ++g)
             if (g < G) dot[g] += sq[g * hd + d0 + c + e] * kd;
         }
       }
     }
 #pragma unroll
-    for (int g = 0; g < kMaxGroup; ++g) {
+    for (int g = 0; g < MaxG; ++g) {
       if (g >= G) break;
       float x = (dot[g] + __shfl_xor_sync(0xffffffffu, dot[g], 1)) * scale;
       if (softcap > 0.f) x = softcap * tanhf(x / softcap);
@@ -148,9 +151,9 @@ decode_partial_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bool any = false;
   for (int g = 0; g < G; ++g) any |= sm[g] != -INFINITY;
   for (int d = 2 * threadIdx.x; d < hd; d += 2 * kThreads) {
-    float acc[kMaxGroup][2];
+    float acc[MaxG][2];
 #pragma unroll
-    for (int g = 0; g < kMaxGroup; ++g) acc[g][0] = acc[g][1] = 0.f;
+    for (int g = 0; g < MaxG; ++g) acc[g][0] = acc[g][1] = 0.f;
     if (any) {
       const bf16* vcol =
           v + (static_cast<size_t>(b) * L + s0) * KV * hd + kvh * hd + d;
@@ -159,7 +162,7 @@ decode_partial_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const float2 vv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
             vcol + static_cast<size_t>(j) * KV * hd));
 #pragma unroll
-        for (int g = 0; g < kMaxGroup; ++g) {
+        for (int g = 0; g < MaxG; ++g) {
           if (g < G) {
             acc[g][0] += sc[g][j] * vv.x;
             acc[g][1] += sc[g][j] * vv.y;
@@ -168,7 +171,7 @@ decode_partial_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
 #pragma unroll
-    for (int g = 0; g < kMaxGroup; ++g) {
+    for (int g = 0; g < MaxG; ++g) {
       if (g < G) {
         acc_part[(part * G + g) * hd + d] = acc[g][0];
         acc_part[(part * G + g) * hd + d + 1] = acc[g][1];
@@ -185,6 +188,7 @@ decode_partial_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // head g the splits' weights w[g][s] = exp(m_s - m) (0 for a split with no
 // live slot) and 1 / sum(w * l) go to shared memory; then each thread sums
 // w * acc over the splits for its (g, d), loads coalesced across d.
+template <int MaxG>
 __global__ void __launch_bounds__(kThreads)
 decode_combine_kernel(const float* __restrict__ m_part,
                       const float* __restrict__ l_part,
@@ -198,7 +202,7 @@ decode_combine_kernel(const float* __restrict__ m_part,
   const int lane = threadIdx.x % 32;
   const size_t base = (static_cast<size_t>(b) * KV + kvh) * n_splits;
   extern __shared__ float w[];  // [G][n_splits]
-  __shared__ float inv_l[kMaxGroup];
+  __shared__ float inv_l[MaxG];
 
   for (int g = warp; g < G; g += kWarps) {
     float mx = -INFINITY;
@@ -237,28 +241,21 @@ extern "C" const char* error_string(int status) {
 
 extern "C" int decode_attention_split() { return kSplit; }
 
-// Scratch: m_part, l_part (B, KV, n_splits, G) and acc_part (B, KV, n_splits,
-// G, hd) float32, n_splits = ceil(L / decode_attention_split()). window <= 0:
-// no window; softcap <= 0: no softcap.
-extern "C" int decode_attention_launch(
-    const void* q, const void* k, const void* v, const void* slot_pos,
-    void* out, void* m_part, void* l_part, void* acc_part, int B, int L,
-    int H, int KV, int hd, int pos, int window, float softcap, float scale,
-    int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (B <= 0 || L <= 0 || H <= 0 || KV <= 0 || H % KV != 0 ||
-      H / KV > kMaxGroup || hd <= 0 || hd % 16 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+namespace {
+
+template <int MaxG>
+int launch(const void* q, const void* k, const void* v, const void* slot_pos,
+           void* out, void* m_part, void* l_part, void* acc_part, int B,
+           int L, int H, int KV, int hd, int pos, int window, float softcap,
+           float scale, cudaStream_t st) {
   const int G = H / KV;
   const int n_splits = (L + kSplit - 1) / kSplit;
   const size_t smem = static_cast<size_t>(G) * hd * sizeof(float);
-  err = cudaFuncSetAttribute(decode_partial_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+  cudaError_t err = cudaFuncSetAttribute(
+      decode_partial_kernel<MaxG>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  decode_partial_kernel<<<dim3(n_splits, KV, B), kThreads, smem, st>>>(
+  decode_partial_kernel<MaxG><<<dim3(n_splits, KV, B), kThreads, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const int*>(slot_pos),
       static_cast<float*>(m_part), static_cast<float*>(l_part),
@@ -269,14 +266,38 @@ extern "C" int decode_attention_launch(
   const size_t smem_w = static_cast<size_t>(G) * n_splits * sizeof(float);
   if (smem_w > static_cast<size_t>(kMaxSmem))
     return static_cast<int>(cudaErrorInvalidValue);
-  err = cudaFuncSetAttribute(decode_combine_kernel,
+  err = cudaFuncSetAttribute(decode_combine_kernel<MaxG>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem_w));
   if (err != cudaSuccess) return static_cast<int>(err);
-  decode_combine_kernel<<<dim3((G * hd + kThreads - 1) / kThreads, KV, B),
-                          kThreads, smem_w, st>>>(
+  decode_combine_kernel<MaxG><<<dim3((G * hd + kThreads - 1) / kThreads, KV,
+                                     B),
+                                kThreads, smem_w, st>>>(
       static_cast<const float*>(m_part), static_cast<const float*>(l_part),
       static_cast<const float*>(acc_part), static_cast<bf16*>(out), H, KV, hd,
       n_splits);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Scratch: m_part, l_part (B, KV, n_splits, G) and acc_part (B, KV, n_splits,
+// G, hd) float32, n_splits = ceil(L / decode_attention_split()). window <= 0:
+// no window; softcap <= 0: no softcap. G = H / KV at most 16.
+extern "C" int decode_attention_launch(
+    const void* q, const void* k, const void* v, const void* slot_pos,
+    void* out, void* m_part, void* l_part, void* acc_part, int B, int L,
+    int H, int KV, int hd, int pos, int window, float softcap, float scale,
+    int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (B <= 0 || L <= 0 || H <= 0 || KV <= 0 || H % KV != 0 ||
+      H / KV > kMaxGroup || hd <= 0 || hd % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (H / KV <= 8)
+    return launch<8>(q, k, v, slot_pos, out, m_part, l_part, acc_part, B, L,
+                     H, KV, hd, pos, window, softcap, scale, st);
+  return launch<16>(q, k, v, slot_pos, out, m_part, l_part, acc_part, B, L,
+                    H, KV, hd, pos, window, softcap, scale, st);
 }

@@ -269,12 +269,25 @@ def lm_params_from_numpy(params, cfg, device="cuda") -> dict:
     return state
 
 
+def _nest(flat: dict) -> dict:
+    """A {dotted path: leaf} dict as the nested dict it flattens."""
+    out: dict = {}
+    for path, leaf in flat.items():
+        *parents, key = path.split(".")
+        node = out
+        for name in parents:
+            node = node.setdefault(name, {})
+        node[key] = leaf
+    return out
+
+
 def lm_cache_from_numpy(cache, cfg, device="cuda") -> list[dict]:
     """The JAX ``decode.init_cache``/``prefill`` cache tree (numpy
-    leaves) as the port's per-layer cache list."""
+    leaves) as the port's per-layer cache list, each layer's dict nested
+    as in the JAX tree (the SSD cache's ``conv`` holds ``x`` and ``bc``)."""
     out = [None] * cfg.n_layers
     for layer, sub in _per_layer(cache, cfg):
-        out[layer] = {k: to_tensor(v, device) for k, v in sub.items()}
+        out[layer] = _nest({k: to_tensor(v, device) for k, v in sub.items()})
     return out
 
 
@@ -283,16 +296,16 @@ def lm_cache_to_numpy(cache, cfg) -> dict:
     (``prefix`` / ``blocks/pos{i}`` stacked over repeats / ``suffix``)
     with numpy leaves."""
     def leaves(layer):
-        return {k: to_numpy(v) for k, v in cache[layer].items()}
+        return {k: to_numpy(v) for k, v in _flat(cache[layer])}
 
-    tree = {"prefix": [leaves(_layer_index(cfg, "prefix", i))
+    tree = {"prefix": [_nest(leaves(_layer_index(cfg, "prefix", i)))
                        for i in range(len(cfg.prefix))],
-            "suffix": [leaves(_layer_index(cfg, "suffix", i))
+            "suffix": [_nest(leaves(_layer_index(cfg, "suffix", i)))
                        for i in range(len(cfg.suffix))],
             "blocks": {}}
     for i in range(len(cfg.pattern)):
         per = [leaves(_layer_index(cfg, "blocks", i, r))
                for r in range(cfg.repeats)]
-        tree["blocks"][f"pos{i}"] = {k: np.stack([p[k] for p in per])
-                                     for k in per[0]}
+        tree["blocks"][f"pos{i}"] = _nest({k: np.stack([p[k] for p in per])
+                                           for k in per[0]})
     return tree

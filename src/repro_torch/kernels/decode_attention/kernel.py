@@ -16,7 +16,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.kernel import check_tensor
 
-MAX_GROUP = 8  # kMaxGroup in decode_attention.cu: query heads per KV head
+MAX_GROUP = 16  # kMaxGroup in decode_attention.cu: query heads per KV head
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # replicas launch from their own threads; the count's += is not atomic
@@ -39,7 +39,7 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           softcap: float | None = None) -> torch.Tensor:
     """Kernel twin of ``ref.decode_attention_ref``: q (B, 1, H, hd), k/v
     (B, L, KV, hd) contiguous bf16, slot_pos (L,) int32, on one CUDA
-    device; ``H / KV`` at most 8 and ``hd`` a multiple of 16. Returns (B,
+    device; ``H / KV`` at most 16 and ``hd`` a multiple of 16. Returns (B,
     1, H, hd) bf16, computed on the current stream."""
     dev = q.device
     if dev.type != "cuda":

@@ -1,8 +1,10 @@
 """Serving launcher: replica group + hedged scheduler (the paper's system).
 
 The port of ``repro.launch.serve``: the same command line, plus
-``--device`` (``cuda`` unless the CPU is asked for). On the card the
-replicas run the attention kernels. Example (CPU, smoke model, 4
+``--device`` (``cuda`` unless the CPU is asked for). ``--arch`` is any
+architecture the port registers (gemma2-2b, mamba2-370m,
+recurrentgemma-9b); on the card the replicas run its kernels
+(attention, ``ssd_scan``, ``rglru_scan``). Example (CPU, smoke model, 4
 replicas, redundancy on):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \\

@@ -1,16 +1,23 @@
 """Serving paths: cache init, prefill (cache building), single-token decode.
 
-The port of ``repro.models.decode`` for attention models on one device.
-The cache is a list with one dict per layer, in layer order:
+The port of ``repro.models.decode`` for the kinds the port runs, on one
+device. The cache is a list with one dict per layer, in layer order:
   global : dense KV cache (B, max_len, KV, hd) + slot positions (max_len,)
   local  : ring-buffer KV cache (B, window, KV, hd) + slot positions
-A Python loop over the layers replaces the JAX package's ``lax.scan``
-over stacked repeats. ``decode_step`` updates the cache in place.
+  rec    : {conv (B, cw-1, W) bf16, h (B, W) float32}
+  ssd    : {conv {x (B, cw-1, d_inner), bc (B, cw-1, 2N)} bf16,
+            h (B, H, P, N) float32}
+(the JAX package's per-layer trees; ``repro_torch.interop`` carries them
+across). A Python loop over the layers replaces the JAX package's
+``lax.scan`` over stacked repeats. ``decode_step`` updates the cache in
+place.
 
-``kernel=`` (``repro_torch.kernels.dispatch``) picks the attention path:
-under ``"auto"`` a CUDA model runs prefill through the ``flash_attention``
-kernel and decode through the ``decode_attention`` kernel; ``"off"``
-runs their plain PyTorch versions.
+``kernel=`` (``repro_torch.kernels.dispatch``) picks the kernels' path:
+under ``"auto"`` a CUDA model runs prefill through the ``flash_attention``,
+``ssd_scan`` and ``rglru_scan`` kernels and decode through the
+``decode_attention`` kernel (the recurrent layers' one-token updates are
+plain PyTorch, as in the JAX package); ``"off"`` runs the kernels' plain
+PyTorch versions.
 """
 from __future__ import annotations
 
@@ -18,10 +25,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models import layers, lm
+from repro_torch.models import layers, lm, rglru, ssd
 from repro_torch.models.layers import mlp, rmsnorm
 
-Cache = list[dict[str, torch.Tensor]]
+Cache = list[dict]
 
 
 # ---------------------------------------------------------------------------
@@ -29,16 +36,22 @@ Cache = list[dict[str, torch.Tensor]]
 # ---------------------------------------------------------------------------
 
 
+def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                     device) -> dict:
+    mixer, _ = lm._mixer_mlp(kind)
+    if mixer == "rec":
+        return rglru.init_rglru_cache(batch, cfg.d_model, cfg.rglru, device)
+    if mixer == "ssd":
+        return ssd.init_ssd_cache(batch, cfg.d_model, cfg.ssm, device)
+    return attn.init_cache(batch, mixer, max_len, cfg.window, cfg.n_kv_heads,
+                           cfg.head_dim, device=device)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device) -> Cache:
     """Empty caches of every layer on ``device``."""
-    out = []
-    for kind in cfg.layer_kinds:
-        mixer, _ = lm._mixer_mlp(kind)
-        out.append(attn.init_cache(batch, mixer, max_len, cfg.window,
-                                   cfg.n_kv_heads, cfg.head_dim,
-                                   device=device))
-    return out
+    return [init_block_cache(cfg, kind, batch, max_len, device)
+            for kind in cfg.layer_kinds]
 
 
 def _theta(cfg: ModelConfig, mixer: str) -> float:
@@ -55,6 +68,10 @@ def _attn_kw(cfg: ModelConfig, mixer: str, kernel: str) -> dict:
 
 def _mlp_residual(p: lm.Block, x: torch.Tensor,
                   cfg: ModelConfig) -> torch.Tensor:
+    """The block's MLP and its residual; a kind without an MLP (``ssd``)
+    passes ``x`` through."""
+    if not hasattr(p, "mlp"):
+        return x
     h = rmsnorm(p.mlp_norm, x, cfg.norm_eps)
     h = mlp(p.mlp, h, cfg.mlp_act)
     if cfg.post_norm:
@@ -67,12 +84,17 @@ def _mlp_residual(p: lm.Block, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def block_decode(p: lm.Block, cache: dict[str, torch.Tensor],
+def block_decode(p: lm.Block, cache: dict,
                  x: torch.Tensor, cfg: ModelConfig, pos: int,
                  kernel: str) -> tuple[torch.Tensor, dict]:
     h = rmsnorm(p.pre_norm, x, cfg.norm_eps)
-    h, cache = attn.decode_attention(p.mixer, h, cache, pos,
-                                     **_attn_kw(cfg, p.kind, kernel))
+    if p.kind == "rec":
+        h, cache = rglru.rglru_decode(p.mixer, h, cache, cfg.rglru)
+    elif p.kind == "ssd":
+        h, cache = ssd.ssd_decode(p.mixer, h, cache, cfg.ssm)
+    else:
+        h, cache = attn.decode_attention(p.mixer, h, cache, pos,
+                                         **_attn_kw(cfg, p.kind, kernel))
     if cfg.post_norm:
         h = rmsnorm(p.post_mixer_norm, h, cfg.norm_eps)
     return _mlp_residual(p, x + h, cfg), cache
@@ -135,9 +157,16 @@ def block_prefill(p: lm.Block, x: torch.Tensor, cfg: ModelConfig,
                   positions: torch.Tensor, max_len: int,
                   kernel: str) -> tuple[torch.Tensor, dict]:
     h = rmsnorm(p.pre_norm, x, cfg.norm_eps)
-    h, (k, v) = attn.attention(p.mixer, h, positions, return_kv=True,
-                               **_attn_kw(cfg, p.kind, kernel))
-    cache = _attn_cache_from_kv(k, v, p.kind, cfg.window, max_len)
+    if p.kind == "rec":
+        h, cache = rglru.rglru_block(p.mixer, h, cfg.rglru, kernel=kernel,
+                                     return_state=True)
+    elif p.kind == "ssd":
+        h, cache = ssd.ssd_block(p.mixer, h, cfg.ssm, kernel=kernel,
+                                 return_state=True)
+    else:
+        h, (k, v) = attn.attention(p.mixer, h, positions, return_kv=True,
+                                   **_attn_kw(cfg, p.kind, kernel))
+        cache = _attn_cache_from_kv(k, v, p.kind, cfg.window, max_len)
     if cfg.post_norm:
         h = rmsnorm(p.post_mixer_norm, h, cfg.norm_eps)
     return _mlp_residual(p, x + h, cfg), cache

@@ -6,8 +6,9 @@ The port of ``repro.models.layers``. Parameters live in small
 key names the JAX leaf it holds; the ``apply`` functions keep the JAX
 signatures and take such a module where JAX takes a param dict. Params
 are stored in ``DEFAULT_PARAM_DTYPE`` (bf16), norm scales in float32;
-compute runs in bf16 with float32 where the reference uses it (norms,
-RoPE, softmax, logits).
+compute runs in bf16 (the embedding table's dtype: a model widened with
+``.float()`` computes in float32) with float32 where the reference uses
+it (norms, RoPE, softmax, logits).
 
 Random init draws from the reference's distributions with an explicit
 ``torch.Generator`` on the target device: the bits differ from JAX's, so
@@ -23,7 +24,6 @@ from torch import nn
 from torch.nn import functional as F
 
 DEFAULT_PARAM_DTYPE = torch.bfloat16
-COMPUTE_DTYPE = torch.bfloat16
 
 
 def truncated_normal(shape, scale: float, generator: torch.Generator,
@@ -38,6 +38,11 @@ def truncated_normal(shape, scale: float, generator: torch.Generator,
     x = torch.erfinv((2.0 * (lo + u * (hi - lo)) - 1.0).clamp_(-1.0, 1.0))
     x.mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0).mul_(scale)
     return x.to(dtype)
+
+
+def frozen(x: torch.Tensor) -> nn.Parameter:
+    """``x`` as a parameter without gradient (the port serves only)."""
+    return nn.Parameter(x, requires_grad=False)
 
 
 class Linear(nn.Module):
@@ -197,12 +202,15 @@ def init_embedding(generator: torch.Generator, vocab: int, d: int,
 
 def embed(p: Embedding, tokens: torch.Tensor, scale: bool,
           d_model: int) -> torch.Tensor:
-    x = p.table[tokens].to(COMPUTE_DTYPE)
+    """Rows of the table in its own dtype, which sets the model's compute
+    dtype: bf16 as in the reference, float32 for a model widened with
+    ``.float()`` (the plain path's float32 yardstick)."""
+    x = p.table[tokens]
     if scale:
         # the reference scales by sqrt(d) rounded to bf16; a Python float
         # of that value gives the same single rounding of the product and
         # copies nothing to the card
-        x = x * float(torch.tensor(d_model**0.5, dtype=COMPUTE_DTYPE))
+        x = x * float(torch.tensor(d_model**0.5, dtype=x.dtype))
     return x
 
 

@@ -5,8 +5,10 @@ is a stack of residual blocks described by ``cfg.layer_kinds``:
     kind          mixer               mlp
     "global"      full GQA attention  dense
     "local"       windowed GQA        dense
-The other kinds of the JAX package (MLA, MoE, RG-LRU, SSD) raise
-``NotImplementedError`` until their slices port them; training
+    "rec"         RG-LRU recurrence   dense
+    "ssd"         Mamba-2 SSD         (none)
+The other kinds of the JAX package (MLA, MoE) raise
+``NotImplementedError`` until their slice ports them; training
 (``forward_hidden``, ``loss_fn``) waits too.
 
 ``LM`` is an ``nn.Module``: the embedding, a ``ModuleList`` of blocks in
@@ -23,7 +25,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models import layers
+from repro_torch.models import layers, rglru, ssd
 
 KIND_TABLE = {
     "global": ("global", "dense"),
@@ -39,8 +41,6 @@ KIND_TABLE = {
 # the ROADMAP item that ports each.
 _REST = "ROADMAP queue 1 item 14 (the rest of the LM substrate)"
 NOT_PORTED = {
-    "ssd": "ROADMAP queue 1 item 8 (mamba2-370m serving, ssd_scan)",
-    "rec": "ROADMAP queue 1 item 9 (recurrentgemma-9b serving, rglru_scan)",
     "mla": _REST,
     "moe": _REST,
 }
@@ -57,17 +57,21 @@ def _mixer_mlp(kind: str) -> tuple[str, str]:
 
 
 class Block(nn.Module):
-    """One residual block: ``pre_norm``, ``mixer``, ``mlp_norm``, ``mlp``
-    and, with ``cfg.post_norm``, ``post_mixer_norm``/``post_mlp_norm``."""
+    """One residual block: ``pre_norm``, ``mixer`` and, where the kind has
+    an MLP, ``mlp_norm``/``mlp``; with ``cfg.post_norm`` also
+    ``post_mixer_norm`` (and ``post_mlp_norm`` with an MLP) — the JAX
+    tree's keys."""
 
-    def __init__(self, kind: str, pre_norm, mixer, mlp_norm, mlp,
+    def __init__(self, kind: str, pre_norm, mixer, mlp_norm=None, mlp=None,
                  post_mixer_norm=None, post_mlp_norm=None):
         super().__init__()
         self.kind = kind
         self.pre_norm, self.mixer = pre_norm, mixer
-        self.mlp_norm, self.mlp = mlp_norm, mlp
+        if mlp is not None:
+            self.mlp_norm, self.mlp = mlp_norm, mlp
         if post_mixer_norm is not None:
             self.post_mixer_norm = post_mixer_norm
+        if post_mlp_norm is not None:
             self.post_mlp_norm = post_mlp_norm
 
 
@@ -90,24 +94,34 @@ class LM(nn.Module):
 
 def init_block(generator: torch.Generator, cfg: ModelConfig,
                kind: str) -> Block:
-    mixer, _ = _mixer_mlp(kind)
+    mixer, mlp_kind = _mixer_mlp(kind)
     dev = generator.device
-    mix = attn.init_attention(generator, cfg.d_model, cfg.n_heads,
-                              cfg.n_kv_heads, cfg.head_dim, cfg.use_bias,
-                              cfg.qk_norm)
+    if mixer in ("global", "local"):
+        mix = attn.init_attention(generator, cfg.d_model, cfg.n_heads,
+                                  cfg.n_kv_heads, cfg.head_dim, cfg.use_bias,
+                                  cfg.qk_norm)
+    elif mixer == "rec":
+        mix = rglru.init_rglru_block(generator, cfg.d_model, cfg.rglru)
+    else:  # "ssd"
+        mix = ssd.init_ssd_block(generator, cfg.d_model, cfg.ssm)
+
+    def norm():
+        return layers.RMSNorm(cfg.d_model, dev)
+
+    post_mixer = norm() if cfg.post_norm else None
+    if mlp_kind == "none":
+        return Block(mixer, norm(), mix, post_mixer_norm=post_mixer)
     mlp = layers.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.gated_mlp,
                           cfg.use_bias)
-    post = ((layers.RMSNorm(cfg.d_model, dev),
-             layers.RMSNorm(cfg.d_model, dev))
-            if cfg.post_norm else (None, None))
-    return Block(mixer, layers.RMSNorm(cfg.d_model, dev), mix,
-                 layers.RMSNorm(cfg.d_model, dev), mlp, *post)
+    return Block(mixer, norm(), mix, norm(), mlp, post_mixer,
+                 norm() if cfg.post_norm else None)
 
 
 def init(generator: torch.Generator, cfg: ModelConfig) -> LM:
     """A model with random weights drawn from ``generator``, on its
     device, from the JAX package's distributions (not its bits)."""
-    if cfg.family not in ("dense", "hybrid") or cfg.patch_stub is not None:
+    if cfg.family not in ("dense", "hybrid", "ssm") or \
+            cfg.patch_stub is not None:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet "
             f"({_REST})")

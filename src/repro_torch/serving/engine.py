@@ -11,8 +11,9 @@ service-time distributions instead of a model.
 Where the JAX engine jits ``prefill``/``decode_step`` without ``impl=``
 and so serves through its jnp reference, this engine takes ``kernel=``
 (``repro_torch.kernels.dispatch``): under the default ``"auto"`` a CUDA
-model runs prefill through the ``flash_attention`` kernel and every
-decode step through the ``decode_attention`` kernel.
+model runs prefill through its kernels (``flash_attention``,
+``ssd_scan``, ``rglru_scan``, by layer kind) and every decode step of its
+attention layers through the ``decode_attention`` kernel.
 """
 from __future__ import annotations
 

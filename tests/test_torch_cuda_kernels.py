@@ -194,3 +194,121 @@ def test_smoke_model_kernels_match_plain(cuda_device):
             steps.append(logits)
         out[mode] = torch.stack(steps)
     assert float((out["on"] - out["off"]).abs().max()) <= 0.21
+
+
+# ---------------------------------------------------------------------------
+# recurrent kernels. ssd_scan sums float32 products in another order than
+# its plain version: the gate of tests/test_kernels.py, elementwise
+# |err| <= 5e-3 + 5e-3 |plain|. rglru_scan rounds each multiply and add as
+# its plain version does: bit for bit.
+# ---------------------------------------------------------------------------
+
+SSD_TOL = 5e-3
+
+
+def _ssd_args(rng, b, nc, q, h, p, n, device, valid=None):
+    f32 = np.float32
+    xc = rng.standard_normal((b, nc, q, h, p)).astype(f32)
+    bc = rng.standard_normal((b, nc, q, n)).astype(f32)
+    cc = rng.standard_normal((b, nc, q, n)).astype(f32)
+    dtc = np.log1p(np.exp(rng.standard_normal((b, nc, q, h)))).astype(f32)
+    if valid is not None:  # a padded chunk: dt = 0 (and x, B, C = 0) past it
+        for x in (xc, bc, cc, dtc):
+            x[:, :, valid:] = 0
+    a = -np.exp(rng.standard_normal(h) * 0.2).astype(f32)
+    cum = np.cumsum(dtc * a, axis=2).astype(f32)
+    return [torch.from_numpy(x).to(device) for x in (xc, bc, cc, dtc, cum)]
+
+
+@pytest.mark.parametrize("shape", [
+    # (B, NC, Q, H, P, N, valid rows of the last chunk)
+    (2, 4, 16, 4, 32, 16, None),     # tests/test_kernels.py's shapes
+    (1, 4, 32, 2, 64, 32, None),
+    (2, 12, 8, 4, 16, 8, None),
+    (1, 1, 100, 3, 24, 40, None),    # tile edges in Q, P and N
+    (1, 2, 256, 32, 64, 128, None),  # mamba2-370m
+    (1, 1, 256, 32, 64, 128, 16),    # a 16-token prompt, padded
+])
+def test_ssd_scan_kernel_matches_plain(cuda_device, shape):
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    *dims, valid = shape
+    args = _ssd_args(np.random.default_rng(sum(dims)), *dims, cuda_device,
+                     valid)
+    before = ssd_kernel.ssd_intra_chunk_cuda.launches
+    got = ssd_ops.ssd_intra_chunk(*args, kernel="on")
+    torch.cuda.synchronize()
+    assert ssd_kernel.ssd_intra_chunk_cuda.launches == before + 1
+    want = ssd_ops.ssd_intra_chunk(*args, kernel="off")
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        assert bool(((g - w).abs() <= SSD_TOL + SSD_TOL * w.abs()).all()), \
+            float(((g - w).abs() / (SSD_TOL + SSD_TOL * w.abs())).max())
+
+
+@pytest.mark.parametrize("shape", [(1, 300, 4096), (2, 77, 96), (3, 5, 40)])
+def test_rglru_scan_kernel_bit_equal_plain(cuda_device, shape):
+    from repro_torch.kernels.rglru_scan import kernel as scan_kernel
+    from repro_torch.kernels.rglru_scan import ops as scan_ops
+    rng = np.random.default_rng(shape[1])
+    a = torch.from_numpy((1 / (1 + np.exp(-rng.standard_normal(shape))))
+                         .astype(np.float32)).to(cuda_device)
+    b = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+        cuda_device)
+    before = scan_kernel.linear_scan_cuda.launches
+    got = scan_ops.linear_scan(a, b, kernel="on")
+    torch.cuda.synchronize()
+    assert scan_kernel.linear_scan_cuda.launches == before + 1
+    assert torch.equal(got, scan_ops.linear_scan(a, b, kernel="off"))
+
+
+@pytest.mark.parametrize("window", [None, 64])
+def test_attention_kernels_at_mqa_group_16(cuda_device, window):
+    """recurrentgemma-9b's local layers: 16 query heads over one KV head,
+    head_dim 256, no softcap."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    rng = np.random.default_rng(16)
+    q, k, v = (_bf16(rng, (1, 200, n, 256), cuda_device)
+               for n in (16, 1, 1))
+    got, want = (fa_ops.flash_attention(q, k, v, window=window, kernel=mode)
+                 for mode in ("on", "off"))
+    _assert_attention_close(got, want)
+    length, pos = 64, 150
+    s = np.arange(length)
+    slots = torch.from_numpy((pos - (pos - s) % length).astype(np.int32)).to(
+        cuda_device)
+    qd = _bf16(rng, (1, 1, 16, 256), cuda_device)
+    kd, vd = (_bf16(rng, (1, length, 1, 256), cuda_device) for _ in range(2))
+    got, want = (da_ops.decode_attention(qd, kd, vd, slots, pos,
+                                         window=window, kernel=mode)
+                 for mode in ("on", "off"))
+    _assert_attention_close(got, want)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b"])
+def test_recurrent_smoke_models_kernels_match_plain(cuda_device, arch):
+    """The recurrent smoke models on the card: prefill of 21 tokens
+    (recurrentgemma's window of 16 wraps), then 4 decode steps, with the
+    kernels and with their plain versions. Logits within twice the plain
+    path's own float32-vs-bf16 distance (tests/test_torch_recurrent_lm.py)."""
+    import copy
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import decode, lm
+    cfg = get_smoke_config(arch)
+    model = lm.init(torch.Generator(cuda_device).manual_seed(0), cfg)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, 25))).to(cuda_device)
+    out = {}
+    for name, m, mode in (("on", model, "on"), ("off", model, "off"),
+                          ("off32", copy.deepcopy(model).float(), "off")):
+        logits, cache = decode.prefill(m, toks[:, :21], 64, kernel=mode)
+        steps = [logits]
+        for i in range(4):
+            logits, cache = decode.decode_step(m, cache, toks[:, 21 + i:22 + i],
+                                               21 + i, kernel=mode)
+            steps.append(logits)
+        out[name] = torch.stack(steps)
+    floor = float((out["off32"] - out["off"]).abs().max())
+    assert float((out["on"] - out["off"]).abs().max()) <= 2 * floor

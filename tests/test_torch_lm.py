@@ -195,12 +195,32 @@ def test_own_init_draws_reference_distributions():
     assert model.embed.table.dtype == layers.DEFAULT_PARAM_DTYPE
 
 
-@pytest.mark.parametrize("kind", ["ssd", "rec", "mla", "global_moe"])
+@pytest.mark.parametrize("kind", ["mla", "global_moe", "mla_moe"])
 def test_unported_kinds_raise(kind):
     cfg = dataclasses.replace(get_smoke_config("gemma2-2b"), pattern=(kind,),
                               n_layers=2)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
         lm.init(torch.Generator("cpu").manual_seed(0), cfg)
+
+
+@pytest.mark.parametrize("kind, arch", [("ssd", "mamba2-370m"),
+                                        ("rec", "recurrentgemma-9b")])
+def test_recurrent_kinds_build_and_prefill(kind, arch):
+    """The kinds that used to raise here build now: two layers of ``kind``
+    in the gemma2-2b smoke model (with the recurrent sub-config of
+    ``arch``'s smoke model), then one prefill and one decode step."""
+    sub = get_smoke_config(arch)
+    cfg = dataclasses.replace(get_smoke_config("gemma2-2b"), pattern=(kind,),
+                              n_layers=2, ssm=sub.ssm, rglru=sub.rglru)
+    model = lm.init(torch.Generator("cpu").manual_seed(0), cfg)
+    assert [b.kind for b in model.blocks] == [kind, kind]
+    assert all(hasattr(b, "mlp") == (kind == "rec") for b in model.blocks)
+    toks = torch.from_numpy(prompt(6, 11, cfg.vocab_size))
+    logits, cache = decode.prefill(model, toks, MAX_LEN)
+    assert logits.shape == (1, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    logits, _ = decode.decode_step(model, cache, toks[:, :1], 11)
+    assert bool(torch.isfinite(logits).all())
 
 
 def test_dense_cache_overflow_raises(smoke):
@@ -216,7 +236,10 @@ def test_new_modules_import_neither_jax_nor_repro():
             "repro_torch.core.hedging", "repro_torch.serving.engine",
             "repro_torch.serving.scheduler", "repro_torch.launch.serve",
             "repro_torch.kernels.flash_attention.ops",
-            "repro_torch.kernels.decode_attention.ops"]
+            "repro_torch.kernels.decode_attention.ops",
+            "repro_torch.models.ssd", "repro_torch.models.rglru",
+            "repro_torch.kernels.ssd_scan.ops",
+            "repro_torch.kernels.rglru_scan.ops"]
     code = ("import sys, importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or"

@@ -341,3 +341,13 @@ def test_serve_main_answers_requests(capsys):
     assert np.all(out["latency_s"] > 0)
     assert out["stats"]["total"] == 4
     assert "[serve] n=4" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b"])
+def test_serve_main_serves_recurrent_archs(arch, capsys):
+    out = serve.main(["--arch", arch, "--smoke", "--replicas", "2",
+                      "--requests", "3", "--max-k", "2", "--device", "cpu"])
+    assert out["latency_s"].shape == (3,)
+    assert np.all(out["latency_s"] > 0)
+    assert out["stats"]["total"] == 3
+    assert "[serve] n=3" in capsys.readouterr().out

@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``src/repro_torch``) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase; needs one card
+    python3 chip_smoke.py --gates      # phases 1, 5-7, gates recorded
+    python3 chip_smoke.py --faults     # --gates on planted faults F9-F11b
 
 Phases, each printing its own lines; any failure raises and exits
 nonzero:
 
   1. build the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
-     per source, started together) and print the card;
+     per source, started together; each library's flags and build
+     seconds), print the attention libraries' SASS instruction counts
+     (wgmma, TMA, mbarrier, cp.async) and the card;
   2. hold the ``hist_accum`` kernel against its plain version: counts
      must be exactly equal;
   3. hold the ``cell_update`` kernel against its plain version on
@@ -29,18 +33,24 @@ nonzero:
   5. hold the ``flash_attention`` kernel against its plain version at
      gemma2-2b's head shape (B=1, H=8, KV=4, hd=256, bf16, softcap 50) at
      S = 16, 300, 1000 and 4608, without a window and with windows of 16,
-     128 and 4096, some with queries scaled so that the softmax is peaked
-     and the outputs are of order 1: in every row (query position and
-     head) the error is at most 2^-6 of the row's largest value, and with
-     standard-normal inputs at most 2e-2 anywhere; time kernel, plain
-     version and ``scaled_dot_product_attention`` (which has no softcap)
-     at S = 4608; and at recurrentgemma-9b's head shape (H=16 over one KV
-     head, hd=256, window 2048, no softcap) at S = 16 and 2560;
+     128 and 4096, and at recurrentgemma-9b's (H=16 over one KV head,
+     hd=256, window 2048, no softcap) at S = 16 and 2560, some with
+     queries scaled so that the softmax is peaked and the outputs are of
+     order 1: in every row (query position and head) the error is at most
+     2^-6 of the row's largest value, and with standard-normal inputs at
+     most 2e-2 anywhere; time kernel, plain version and the library calls
+     at S = 4608 (gemma2-2b's global and local layers) and 2560
+     (recurrentgemma-9b's local layer): where there is no softcap, masked
+     ``scaled_dot_product_attention`` computes the same function; with
+     gemma2-2b's softcap, ``flex_attention`` compiled with the softcap as
+     its ``score_mod`` and the mask as its block mask does (its compile
+     seconds printed), and SDPA without the softcap stands beside it;
   6. the same for ``decode_attention``: the served path's dense cache,
      a dense cache with a window and positions past ``pos``, a ring
      before and after it wraps, a dense cache of 4672 slots and a ring of
-     4096 at pos = 5000; the device time of its two passes from a trace;
-     recurrentgemma-9b's ring of 2048 at pos 23 and 2575;
+     4096 at pos = 5000 (timed, with ``flex_attention`` and SDPA), and
+     recurrentgemma-9b's MQA ring of 2048 at pos 23 and 2575 (timed,
+     with masked SDPA); the device's kernels per call from a trace;
   7. gemma2-2b at full width and depth (26 layers, random weights from the
      port's own init on the card): a 4608-token prompt, longer than the
      window, then 16 teacher-forced decode steps. Once with every
@@ -78,7 +88,12 @@ nonzero:
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Needs CUDA and the repository's
-``src/`` beside this script; imports nothing of JAX or of ``repro``.
+``src/`` beside this script (or ``--src``); imports nothing of JAX or of
+``repro``. ``--gates`` records every gate of phases 5-7 (the worst
+multiple of its allowance) instead of stopping at the first that fails,
+and prints them as its last line; ``--faults`` runs it on a copy of the
+package for each planted fault of ``FAULTS``, the unedited package
+first.
 """
 from __future__ import annotations
 
@@ -221,17 +236,35 @@ def row_err(got, want) -> tuple[float, float]:
     return float(err.max()), float((err / allow).max())
 
 
-def check_attention(name: str, got, want, absolute: bool) -> float:
-    """Raise unless ``got`` meets the row gate and, where ``absolute``
+# The worst multiple of its allowance that each gate saw in this run (inf
+# where an output was not finite); ``--gates`` prints it.
+GATES: dict[str, float] = {}
+
+
+def record_gate(gate: str, ratio: float) -> None:
+    GATES[gate] = max(GATES.get(gate, 0.0),
+                      math.inf if math.isnan(ratio) else ratio)
+
+
+def check_attention(name: str, got, want, absolute: bool, gate: str,
+                    raise_on_fail: bool) -> float:
+    """Check that ``got`` meets the row gate and, where ``absolute``
     (standard-normal inputs, as in tests/test_kernels.py), ``ATTN_TOL``
     anywhere; returns the max abs error. Peaked inputs give outputs up to
-    ~4.5, where one bf16 ulp is 0.03125, so they take the row gate only."""
+    ~4.5, where one bf16 ulp is 0.03125, so they take the row gate only.
+    ``gate`` names the gate in ``GATES``; a failure raises where
+    ``raise_on_fail``, and is only printed otherwise (``--gates``)."""
     err, ratio = row_err(got, want)
+    record_gate(f"{gate} row", ratio)
+    if absolute:
+        record_gate(f"{gate} 2e-2", err / ATTN_TOL)
     if not ((err <= ATTN_TOL or not absolute) and ratio <= 1.0):
-        raise AssertionError(f"{name} differs from its plain version: max "
-                             f"abs err {err} (gate "
-                             f"{ATTN_TOL if absolute else None}), worst row "
-                             f"at {ratio} of 2^-6 of its largest value")
+        msg = (f"{name} differs from its plain version: max abs err {err} "
+               f"(gate {ATTN_TOL if absolute else None}), worst row at "
+               f"{ratio} of 2^-6 of its largest value")
+        if raise_on_fail:
+            raise AssertionError(msg)
+        log(f"    gate failed: {msg}")
     return err
 
 
@@ -242,10 +275,74 @@ def bound(n_bytes: float, n_ops: float, ops_per_s: float):
                                        else "operations")
 
 
-def attention_kernels(dev) -> dict:
+def flex_attention_call(q, k, v, mask_mod, cap):
+    """``torch.nn.attention.flex_attention``, compiled, computing the
+    attention kernels' function on (B, Sq, H, hd) queries over (B, Skv,
+    KV, hd) keys and values: hd^-0.5 scale, the softcap as its
+    ``score_mod``, the causal, window or slot mask as its block mask.
+    Returns (call, seconds to build the mask and compile); the call returns
+    (B, Sq, H, hd). A yardstick only: the port never calls it."""
+    import torch
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    def softcap(score, b, h, q_idx, kv_idx):
+        return cap * torch.tanh(score / cap)
+
+    # a fresh compile: the mask functions share their code and differ only
+    # in what they capture
+    torch._dynamo.reset()
+    t0 = time.perf_counter()
+    block_mask = create_block_mask(mask_mod, None, None, q.shape[1],
+                                   k.shape[1], device=q.device)
+    fx = torch.compile(flex_attention, dynamic=False)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def call():
+        return fx(qt, kt, vt, score_mod=softcap if cap else None,
+                  block_mask=block_mask, enable_gqa=True).transpose(1, 2)
+
+    call()
+    torch.cuda.synchronize()
+    return call, time.perf_counter() - t0
+
+
+def causal_mask_mod(window):
+    """flex_attention's mask: causal, and within ``window`` if given."""
+    def mask_mod(b, h, q_idx, kv_idx):
+        live = kv_idx <= q_idx
+        return live if window is None else live & (kv_idx > q_idx - window)
+    return mask_mod
+
+
+def slot_mask_mod(valid):
+    """flex_attention's mask over a cache: the slots ``valid`` marks."""
+    def mask_mod(b, h, q_idx, kv_idx):
+        return valid[kv_idx]
+    return mask_mod
+
+
+def flex_yardstick(label: str, q, k, v, mask_mod, cap, want, reps: int):
+    """ms of ``flex_attention_call``, printed with its compile seconds and
+    its distance from the plain version. It computes the kernels' function,
+    so a failure to compile or run it fails the run."""
+    call, compile_s = flex_attention_call(q, k, v, mask_mod, cap)
+    _, ratio = row_err(call(), want)
+    ms = cuda_ms(call, reps, f"flex_attention {label}")
+    log(f"    flex_attention {label}: {ms} ms, compiled in {compile_s} s, "
+        f"worst row at {ratio} of the row allowance against the plain "
+        f"version (the same function)")
+    return ms
+
+
+def attention_kernels(dev, timed: bool = True,
+                      raise_on_fail: bool = True) -> dict:
     """Phases 5 and 6: both attention kernels against their plain
-    versions at gemma2-2b's head shape; times at the main path's shapes.
-    Returns the kernels' records (without launches)."""
+    versions at gemma2-2b's and recurrentgemma-9b's head shapes; with
+    ``timed``, their times at the main path's shapes beside their bounds
+    and the library calls that compute the same function. A failed gate
+    raises where ``raise_on_fail`` (see ``check_attention``). Returns the
+    kernels' records (without launches)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -254,6 +351,7 @@ def attention_kernels(dev) -> dict:
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
     b, h, kv, hd, cap, window = 1, 8, 4, 256, 50.0, 4096
+    mq_h, mq_w = 16, 2048  # recurrentgemma-9b's local layers: MQA, window
     rng = np.random.default_rng(13)
 
     def bf16(*shape):
@@ -261,30 +359,36 @@ def attention_kernels(dev) -> dict:
             np.float32)).to(dev, torch.bfloat16)
 
     # ---------------------------------------------------------------- 5
-    # (S, window, query scale, timed): a query scale of 8 makes the
-    # softmax peaked, so the outputs are of order 1
+    # (heads, KV heads, S, window, softcap, query scale, timed): a query
+    # scale of 8 makes the softmax peaked, so the outputs are of order 1
     fa_err, fa = 0.0, {}
-    for s, w, qs, timed in ((16, None, 1, False), (300, 16, 1, False),
-                            (300, 16, 8, False), (1000, 128, 1, False),
-                            (1000, 128, 8, False), (1000, None, 1, False),
-                            (PROMPT, None, 1, True),
-                            (PROMPT, window, 1, True),
-                            (PROMPT, window, 8, False)):
-        q, k, v = qs * bf16(b, s, h, hd), bf16(b, s, kv, hd), \
-            bf16(b, s, kv, hd)
-        got = fa_ops.flash_attention(q, k, v, window=w, softcap=cap,
+    g2 = (h, kv)
+    for (nh, nkv), s, w, c, qs, time_it in (
+            (g2, 16, None, cap, 1, False), (g2, 300, 16, cap, 1, False),
+            (g2, 300, 16, cap, 8, False), (g2, 1000, 128, cap, 1, False),
+            (g2, 1000, 128, cap, 8, False), (g2, 1000, None, cap, 1, False),
+            (g2, PROMPT, None, cap, 1, True),
+            (g2, PROMPT, window, cap, 1, True),
+            (g2, PROMPT, window, cap, 8, False),
+            ((mq_h, 1), 16, mq_w, None, 1, False),
+            ((mq_h, 1), RG_PROMPT, mq_w, None, 1, True),
+            ((mq_h, 1), RG_PROMPT, mq_w, None, 8, False)):
+        q, k, v = qs * bf16(b, s, nh, hd), bf16(b, s, nkv, hd), \
+            bf16(b, s, nkv, hd)
+        got = fa_ops.flash_attention(q, k, v, window=w, softcap=c,
                                      kernel="on")
-        want = fa_ops.flash_attention(q, k, v, window=w, softcap=cap,
+        want = fa_ops.flash_attention(q, k, v, window=w, softcap=c,
                                       kernel="off")
-        err = check_attention(f"flash_attention S={s} window={w}", got,
-                              want, absolute=qs == 1)
+        shape = f"H={nh} KV={nkv} S={s} window={w} softcap={c}"
+        err = check_attention(f"flash_attention {shape}", got, want,
+                              absolute=qs == 1, gate="phase 5",
+                              raise_on_fail=raise_on_fail)
         if qs == 1:  # the record's error: the 2e-2-gated cases
             fa_err = max(fa_err, err)
-        log(f"[5] flash_attention S={s} window={w} softcap={cap} query "
-            f"scale {qs}: max abs err vs plain {err} (largest |out| "
-            f"{float(want.float().abs().max())}, worst row at "
-            f"{row_err(got, want)[1]} of its allowance)")
-        if not timed:
+        log(f"[5] flash_attention {shape} query scale {qs}: max abs err vs "
+            f"plain {err} (largest |out| {float(want.float().abs().max())}, "
+            f"worst row at {row_err(got, want)[1]} of its allowance)")
+        if not (timed and time_it):
             continue
         i = torch.arange(s, device=dev)
         live = i[None, :] <= i[:, None]
@@ -292,123 +396,140 @@ def attention_kernels(dev) -> dict:
             live &= i[None, :] > i[:, None] - w
         pairs = int(live.sum())
         ms = cuda_ms(lambda: fa_ops.flash_attention(
-            q, k, v, window=w, softcap=cap, kernel="on"), 10,
+            q, k, v, window=w, softcap=c, kernel="on"), 10,
             "flash_attention")
         plain = cuda_ms(lambda: fa_ops.flash_attention(
-            q, k, v, window=w, softcap=cap, kernel="off"), 3,
+            q, k, v, window=w, softcap=c, kernel="off"), 3,
             "flash_attention plain")
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        sdpa = (dict(is_causal=True) if w is None
-                else dict(attn_mask=live))
-        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, enable_gqa=True, **sdpa), 10, "sdpa")
-        n_bytes = 2 * (2 * b * s * h * hd + 2 * b * s * kv * hd)
-        bms, by = bound(n_bytes, 4 * hd * h * b * pairs, BF16_OPS_PER_S)
-        fa[w] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
-                     bound_by=by)
-        log(f"[5] flash_attention S={s} window={w}: kernel {ms} ms, plain "
-            f"{plain} ms, scaled_dot_product_attention (no softcap) {lib} "
-            f"ms, bound {bms} ms ({by}; {pairs} live pairs)")
-
-    # recurrentgemma-9b's local layers: 16 query heads over one KV head,
-    # head_dim 256, window 2048, no softcap; its served prompt and a prompt
-    # past the window
-    mq_h, mq_w = 16, 2048
-    for s, qs in ((16, 1), (2560, 1), (2560, 8)):
-        q, k, v = qs * bf16(b, s, mq_h, hd), bf16(b, s, 1, hd), \
-            bf16(b, s, 1, hd)
-        got = fa_ops.flash_attention(q, k, v, window=mq_w, kernel="on")
-        want = fa_ops.flash_attention(q, k, v, window=mq_w, kernel="off")
-        err = check_attention(f"flash_attention MQA S={s}", got, want,
-                              absolute=qs == 1)
-        if qs == 1:
-            fa_err = max(fa_err, err)
-        log(f"[5] flash_attention H={mq_h} KV=1 S={s} window={mq_w} no "
-            f"softcap, query scale {qs}: max abs err vs plain {err} "
-            f"(largest |out| {float(want.float().abs().max())}, worst row at "
-            f"{row_err(got, want)[1]} of its allowance)")
+        sdpa_kw = (dict(is_causal=True) if w is None
+                   else dict(attn_mask=live))
+        sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True, **sdpa_kw), 10, "sdpa")
+        n_bytes = 2 * (2 * b * s * nh * hd + 2 * b * s * nkv * hd)
+        bms, by = bound(n_bytes, 4 * hd * nh * b * pairs, BF16_OPS_PER_S)
+        rec = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
+        if c is None:
+            # no softcap: masked SDPA computes exactly the kernel's function
+            rec.update(library_ms=sdpa, library="torch.nn.functional."
+                       "scaled_dot_product_attention (boolean mask)")
+            log(f"[5] flash_attention {shape}: kernel {ms} ms, plain {plain} "
+                f"ms, scaled_dot_product_attention (the same function) "
+                f"{sdpa} ms, bound {bms} ms ({by}; {pairs} live pairs)")
+        else:
+            flex = flex_yardstick(shape, q, k, v, causal_mask_mod(w), c,
+                                  want, 10)
+            rec.update(library_ms=flex, library="torch.nn.attention."
+                       "flex_attention, compiled (softcap score_mod, block "
+                       "mask: the same function)", sdpa_no_softcap_ms=sdpa)
+            log(f"[5] flash_attention {shape}: kernel {ms} ms, plain {plain} "
+                f"ms, flex_attention (the same function) {flex} ms, "
+                f"scaled_dot_product_attention (no softcap) {sdpa} ms, bound "
+                f"{bms} ms ({by}; {pairs} live pairs)")
+        fa[(nh, w)] = rec
 
     # ---------------------------------------------------------------- 6
     da_err, da = 0.0, {}
     last = PROMPT + DECODE_STEPS - 1
-    # (case, cache length, pos, window, query scale, timed): the served
-    # path's dense cache (max_len 128, a 16-token prompt and 8 new
-    # tokens); a dense cache holding positions past ``pos`` under a
-    # window; a ring before and after it wraps; the long run's dense
-    # cache and its wrapped ring
-    for case, length, pos, w, qs, timed in (
-            ("dense", 128, 23, None, 1, False),
-            ("filled", 512, 300, 64, 1, False),
-            ("ring", 64, 40, 64, 1, False),
-            ("ring", 64, 1000, 64, 1, False),
-            ("dense", MAX_LEN, last, None, 1, True),
-            ("dense", MAX_LEN, last, None, 8, False),
-            ("ring", window, 5000, window, 1, True)):
-        q, k, v = qs * bf16(b, 1, h, hd), bf16(b, length, kv, hd), \
-            bf16(b, length, kv, hd)
+    # (case, heads, KV heads, cache length, pos, window, softcap, query
+    # scale, timed): the served path's dense cache (max_len 128, a 16-token
+    # prompt and 8 new tokens); a dense cache holding positions past
+    # ``pos`` under a window; a ring before and after it wraps; the long
+    # run's dense cache and its wrapped ring; recurrentgemma-9b's MQA ring
+    # of 2048 before it fills and past it
+    for case, (nh, nkv), length, pos, w, c, qs, time_it in (
+            ("dense", g2, 128, 23, None, cap, 1, False),
+            ("filled", g2, 512, 300, 64, cap, 1, False),
+            ("ring", g2, 64, 40, 64, cap, 1, False),
+            ("ring", g2, 64, 1000, 64, cap, 1, False),
+            ("dense", g2, MAX_LEN, last, None, cap, 1, True),
+            ("dense", g2, MAX_LEN, last, None, cap, 8, False),
+            ("ring", g2, window, 5000, window, cap, 1, True),
+            ("ring", (mq_h, 1), mq_w, 23, mq_w, None, 1, False),
+            ("ring", (mq_h, 1), mq_w, RG_PROMPT + 15, mq_w, None, 1, True),
+            ("ring", (mq_h, 1), mq_w, RG_PROMPT + 15, mq_w, None, 8, False)):
+        q, k, v = qs * bf16(b, 1, nh, hd), bf16(b, length, nkv, hd), \
+            bf16(b, length, nkv, hd)
         s = np.arange(length)
         slots = {"dense": np.where(s <= pos, s, -1), "filled": s,
-                 "ring": pos - (pos - s) % length}[case]
+                 "ring": np.where(s <= pos, pos - (pos - s) % length,
+                                  -1)}[case]
         slots = torch.from_numpy(slots.astype(np.int32)).to(dev)
-        got = da_ops.decode_attention(q, k, v, slots, pos, window=w,
-                                      softcap=cap, kernel="on")
-        want = da_ops.decode_attention(q, k, v, slots, pos, window=w,
-                                       softcap=cap, kernel="off")
-        err = check_attention(f"decode_attention {case} L={length} "
-                              f"pos={pos}", got, want, absolute=qs == 1)
+
+        def call(kernel):
+            return da_ops.decode_attention(q, k, v, slots, pos, window=w,
+                                           softcap=c, kernel=kernel)
+
+        got, want = call("on"), call("off")
+        shape = (f"{case} H={nh} KV={nkv} L={length} pos={pos} window={w} "
+                 f"softcap={c}")
+        err = check_attention(f"decode_attention {shape}", got, want,
+                              absolute=qs == 1, gate="phase 6",
+                              raise_on_fail=raise_on_fail)
         if qs == 1:  # the record's error: the 2e-2-gated cases
             da_err = max(da_err, err)
         valid = (slots >= 0) & (slots <= pos)
         if w is not None:
             valid &= slots > pos - w
         n_live = int(valid.sum())
-        log(f"[6] decode_attention {case} L={length} pos={pos} window={w} "
-            f"query scale {qs} ({n_live} live slots): max abs err vs plain "
-            f"{err} (largest |out| {float(want.float().abs().max())}, "
-            f"worst row at {row_err(got, want)[1]} of its allowance)")
-        if not timed:
+        log(f"[6] decode_attention {shape} query scale {qs} ({n_live} live "
+            f"slots): max abs err vs plain {err} (largest |out| "
+            f"{float(want.float().abs().max())}, worst row at "
+            f"{row_err(got, want)[1]} of its allowance)")
+        if not (timed and time_it):
             continue
-
-        def call(kernel):
-            return da_ops.decode_attention(q, k, v, slots, pos, window=w,
-                                           softcap=cap, kernel=kernel)
-
         ms = cuda_ms(lambda: call("on"), 50, "decode_attention")
         plain = cuda_ms(lambda: call("off"), 20, "decode_attention plain")
-        mask = valid[None, None, None, :]
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+        mask = valid[None, None, None, :]
+        sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True), 50, "sdpa")
-        n_bytes = 2 * 2 * n_live * b * kv * hd
-        bms, by = bound(n_bytes, 4 * hd * h * b * n_live, BF16_OPS_PER_S)
-        da[case] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
-                        bound_by=by)
+        n_bytes = 2 * 2 * n_live * b * nkv * hd
+        bms, by = bound(n_bytes, 4 * hd * nh * b * n_live, BF16_OPS_PER_S)
+        rec = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
+        if c is None:
+            rec.update(library_ms=sdpa, library="torch.nn.functional."
+                       "scaled_dot_product_attention (boolean mask)")
+            lib_note = f"scaled_dot_product_attention (the same function) " \
+                       f"{sdpa} ms"
+        else:
+            flex = flex_yardstick(shape, q, k, v, slot_mask_mod(valid), c,
+                                  want, 50)
+            rec.update(library_ms=flex, library="torch.nn.attention."
+                       "flex_attention, compiled (softcap score_mod, block "
+                       "mask: the same function)", sdpa_no_softcap_ms=sdpa)
+            lib_note = (f"flex_attention (the same function) {flex} ms, "
+                        f"scaled_dot_product_attention (no softcap) {sdpa} ms")
+        da[(nh, case)] = rec
         tr = traced(lambda: [call("on") for _ in range(50)])
         per_call = {n: t / 50 for n, t in tr["top_device_ms"].items()}
-        log(f"[6] decode_attention {case} L={length} pos={pos}: kernel {ms} "
-            f"ms, plain {plain} ms, scaled_dot_product_attention (no "
-            f"softcap) {lib} ms, bound {bms} ms ({by}); device ms per call "
-            f"by kernel (trace of 50 calls) {json.dumps(per_call)}")
-    for pos, qs in ((23, 1), (2575, 1), (2575, 8)):
-        q, k, v = qs * bf16(b, 1, mq_h, hd), bf16(b, mq_w, 1, hd), \
-            bf16(b, mq_w, 1, hd)
-        s = np.arange(mq_w)
-        slots = torch.from_numpy(np.where(
-            s <= pos, pos - (pos - s) % mq_w, -1).astype(np.int32)).to(dev)
-        got = da_ops.decode_attention(q, k, v, slots, pos, window=mq_w,
-                                      kernel="on")
-        want = da_ops.decode_attention(q, k, v, slots, pos, window=mq_w,
-                                       kernel="off")
-        err = check_attention(f"decode_attention MQA pos={pos}", got, want,
-                              absolute=qs == 1)
-        if qs == 1:
-            da_err = max(da_err, err)
-        log(f"[6] decode_attention H={mq_h} KV=1 ring of {mq_w} at pos={pos} "
-            f"no softcap, query scale {qs}: max abs err vs plain {err} "
-            f"(largest |out| {float(want.float().abs().max())}, worst row at "
-            f"{row_err(got, want)[1]} of its allowance)")
-    return {"flash_attention": dict(fa[None], max_abs_err=fa_err),
-            "decode_attention": dict(da["dense"], max_abs_err=da_err)}
+        # what the time is made of: the same launch with no live slot (no
+        # copies, no products: the scan, barriers and combine), and one
+        # library call reading the same K and V bytes
+        none_live = torch.full_like(slots, -1)
+        ms_empty = cuda_ms(lambda: da_ops.decode_attention(
+            q, k, v, none_live, pos, window=w, softcap=c, kernel="on"), 50,
+            "decode_attention, no live slot")
+        kv_rows = torch.stack((k, v))
+        ms_read = cuda_ms(lambda: kv_rows.sum(dtype=torch.float32), 50,
+                          "torch.sum")
+        log(f"[6] decode_attention {shape}: kernel {ms} ms, plain {plain} "
+            f"ms, {lib_note}, bound {bms} ms ({by}); the kernel with no "
+            f"live slot {ms_empty} ms, torch.sum over the same K and V "
+            f"{ms_read} ms; device ms per call by kernel (trace of 50 "
+            f"calls) {json.dumps(per_call)}")
+    if not timed:
+        return {}
+    for key, rec in (("flash_attention recurrentgemma-9b local layer",
+                      fa[(mq_h, mq_w)]),
+                     ("decode_attention recurrentgemma-9b ring",
+                      da[(mq_h, "ring")]),
+                     ("flash_attention gemma2-2b local layer",
+                      fa[(h, window)]),
+                     ("decode_attention gemma2-2b ring", da[(h, "ring")])):
+        log(f"[6] {key}: {json.dumps(rec)}")
+    return {"flash_attention": dict(fa[(h, None)], max_abs_err=fa_err),
+            "decode_attention": dict(da[(h, "dense")], max_abs_err=da_err)}
 
 
 @contextlib.contextmanager
@@ -467,6 +588,9 @@ def checked_against_plain(worst: dict,
             out = op(*args, kernel=kernel, **kw)
             if kernel == "on":
                 err, ratio = gate(out, op(*args, kernel="off", **kw))
+                # a NaN (an output not written, say) fails, not vanishes
+                err, ratio = (math.inf if math.isnan(x) else x
+                              for x in (err, ratio))
                 n, e0, r0 = worst.get(name, (0, 0.0, 0.0))
                 worst[name] = (n + 1, max(e0, err), max(r0, ratio))
             return out
@@ -537,19 +661,22 @@ def lm_full(dev) -> None:
         log(f"[7] {name} at every layer and step of the kernel run ({n} "
             f"calls), against its plain version on the same inputs: max abs "
             f"err {err}, worst row at {ratio} of its allowance")
+        record_gate(f"phase 7 per-call {name}", ratio if n else math.inf)
         if n == 0 or not ratio <= 1.0:
             failed.append(f"{name} over the model: {n} calls, worst row at "
                           f"{ratio} of 2^-6 of its largest value")
     on, off, off32 = runs["on"], runs["off"], runs["off32"]
     if tuple(on.shape) != (DECODE_STEPS + 1, cfg.vocab_size) or \
             not all(bool(torch.isfinite(x).all()) for x in runs.values()):
+        record_gate("phase 7 logits", math.inf)
         raise AssertionError(f"logits of shape {tuple(on.shape)} or not "
-                             f"finite")
+                             f"finite; " + "; ".join(failed))
     diffs = (on - off).abs().amax(dim=-1).tolist()
     floor = (off32 - off).abs().amax(dim=-1).tolist()
     # the kernels may differ from the plain path by no more than twice the
     # plain path's own bf16 noise floor (the rule of tests/test_torch_lm.py)
     bound_ = 2 * max(floor)
+    record_gate("phase 7 logits", max(diffs) / bound_)
     log(f"[7] max abs logit difference, prefill then each decode step: "
         f"kernels vs plain {json.dumps(diffs)}; plain in float32 vs plain "
         f"{json.dumps(floor)}; bound 2 x {max(floor)} = {bound_}; largest "
@@ -923,19 +1050,146 @@ def serve_path(arch: str, phase: int, counters: dict) -> dict:
     return launches
 
 
-def main() -> int:
+# Planted faults (``--faults``): each edits one kernel source of a copy of
+# the package, as (source, text found once, its replacement, what it does).
+FAULTS = {
+    "F9": ("flash_attention",
+           "      mbar_wait(kfull, parity);\n      const uint32_t k_tile",
+           "      if (n < kStages) mbar_wait(kfull, parity);\n"
+           "      const uint32_t k_tile",
+           "a consumer waits for K only on each stage's first use, so a "
+           "later tile may read the stage's stale K"),
+    "F10": ("flash_attention",
+            "  const int h = blockIdx.x;\n",
+            "  if (tile == n_tiles - 1) return;\n  const int h = blockIdx.x;\n",
+            "the tile scheduler drops the last (heaviest) query tile of "
+            "every head"),
+    "F11": ("decode_attention",
+            "is_last = done == n_clusters - 1;",
+            "is_last = done == n_clusters - 2;",
+            "the combine runs when all but one cluster have published their "
+            "partials"),
+    # stronger forms of F9 and F11, for races that the timing may hide
+    "F9b": ("flash_attention",
+            "      mbar_wait(kfull, parity);\n      const uint32_t k_tile",
+            "      const uint32_t k_tile",
+            "a consumer never waits for K: every tile may read a K stage "
+            "before its copy lands"),
+    "F11b": ("decode_attention",
+             "is_last = done == n_clusters - 1;",
+             "is_last = done == 0;",
+             "the combine runs when the first cluster has published"),
+}
+
+
+def sass_counts(lib_path) -> dict:
+    """Counts of the instructions that show the attention kernels' design
+    in a library's SASS (``cuobjdump -sass``): wgmma (HGMMA), TMA and bulk
+    copies (UTMALDG, UBLKCP), mbarrier operations (SYNCS), cp.async
+    (LDGSTS), mma.sync (HMMA), ldmatrix (LDSM)."""
+    from repro_torch.kernels import build
+    cuobjdump = Path(build.nvcc_path()).resolve().parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    ops = []  # "/*1a40*/  @!P0 SYNCS.EXCH.64 ... ;  /* 0x... */"
+    for ln in sass.splitlines():
+        head = ln.strip()
+        if head.startswith("/*") and head[2:].split("*/", 1)[0].isalnum():
+            words = head.split("*/", 1)[1].split()
+            if words and words[0].startswith("@"):
+                words = words[1:]
+            if words:
+                ops.append(words[0].split(".")[0])
+    return {op: ops.count(op)
+            for op in ("HGMMA", "UTMALDG", "UBLKCP", "SYNCS", "LDGSTS",
+                       "HMMA", "LDSM")}
+
+
+def run_faults() -> int:
+    """Plant each fault of ``FAULTS`` in a copy of the package (under the
+    git-ignored build directory, with the built libraries of the sources
+    it leaves alone), run phases 1 and 5-7 of this script on the copy with
+    ``--gates``, and print which gates rejected it: the worst multiple of
+    each gate's allowance (> 1 rejects). The unedited package runs first,
+    as the control."""
+    import shutil
+
+    from repro_torch.kernels import build
+
+    build.build_all()
+    results = {}
+    for name in ("control", *FAULTS):
+        tree = ROOT / "src"
+        if name != "control":
+            source, old, new, what = FAULTS[name]
+            tree = build.BUILD_DIR / "faults" / name
+            shutil.rmtree(tree, ignore_errors=True)
+            shutil.copytree(ROOT / "src" / "repro_torch", tree / "repro_torch",
+                            ignore=shutil.ignore_patterns("build",
+                                                          "__pycache__"))
+            shutil.copytree(build.BUILD_DIR, tree / "repro_torch" / "build",
+                            ignore=shutil.ignore_patterns("faults"))
+            cu = tree / "repro_torch" / "csrc" / f"{source}.cu"
+            text = cu.read_text()
+            if text.count(old) != 1:
+                raise AssertionError(f"{name}: its text is not found once in "
+                                     f"{source}.cu")
+            cu.write_text(text.replace(old, new))
+            log(f"[faults] {name}: {what} ({source}.cu)")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--gates", "--src",
+             str(tree)], capture_output=True, text=True, timeout=1500)
+        lines = proc.stdout.strip().splitlines()
+        for ln in lines[:-1]:
+            if "gate failed" in ln or "[7]" in ln or "build" in ln:
+                log(f"[faults] {name} | {ln.strip()[:400]}")
+        try:
+            gates = json.loads(lines[-1])["gates"]
+        except (IndexError, ValueError, KeyError):
+            log(f"[faults] {name}: no gate record (exit {proc.returncode});"
+                f" stderr: {proc.stderr[-2000:]}")
+            gates = None
+        results[name] = gates
+        log(f"[faults] {name}: {time.perf_counter() - t0:.1f}s, gates "
+            f"(worst multiple of the allowance; > 1 rejects) "
+            f"{json.dumps(gates)}")
+    print(json.dumps({"faults": results}), flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="Drive the PyTorch port on one "
+                                 "CUDA card (see the module's docstring).")
+    ap.add_argument("--gates", action="store_true",
+                    help="run phases 1 and 5-7 only, recording every gate "
+                         "instead of stopping at the first that fails; the "
+                         "last line is the gates' worst multiples")
+    ap.add_argument("--faults", action="store_true",
+                    help="run --gates on copies of the package with each "
+                         "planted fault of FAULTS")
+    ap.add_argument("--src", default=str(ROOT / "src"),
+                    help="the directory holding repro_torch (default: "
+                         "src/ beside this script)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        print(f"chip_smoke: {ROOT / 'src' / 'repro_torch'} not found",
+    src = Path(args.src).resolve()
+    if not (src / "repro_torch").is_dir():
+        print(f"chip_smoke: {src / 'repro_torch'} not found",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.faults:
+        return run_faults()
     import numpy as np
 
     from repro_torch import interop
@@ -969,15 +1223,28 @@ def main() -> int:
     t0 = time.perf_counter()
     secs = build.build_all()
     log(f"[1] build: {json.dumps({k: round(v, 2) for k, v in secs.items()})}"
-        f" wall {time.perf_counter() - t0:.2f}s (nvcc flags: "
-        f"{' '.join(build.NVCC_FLAGS)})")
+        f" seconds each (started together), wall "
+        f"{time.perf_counter() - t0:.2f}s")
     for name in build.SOURCES:
+        log(f"[1] {name} nvcc flags: {' '.join(build.nvcc_flags(name))}")
         if build.build_log(name).exists():
             for ln in build.build_log(name).read_text().splitlines():
-                if "registers" in ln or "bytes stack" in ln:
+                if any(w in ln for w in ("registers", "bytes stack",
+                                         "arning")):
                     log(f"[1] ptxas {name}: {ln.strip()}")
+    for name in ("flash_attention", "decode_attention"):
+        log(f"[1] SASS of {name}: "
+            f"{json.dumps(sass_counts(build.library_path(name)))}")
     card = gpu_line()
     log(f"[1] gpu: {card}")
+    if args.gates:
+        attention_kernels(dev, timed=False, raise_on_fail=False)
+        try:
+            lm_full(dev)
+        except AssertionError as exc:
+            log(f"    gate failed: {exc}")
+        print(json.dumps({"gates": GATES}), flush=True)
+        return 0
 
     # ---------------------------------------------------------------- 2
     errs = {"cell_update": 0.0, "hist_accum": 0.0}
@@ -1345,12 +1612,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": f"src/repro/kernels/{pkg}/kernel.py:{line}",
-            "launches": launches[name], "max_abs_err": a["max_abs_err"],
-            "ms": a["ms"], "plain_ms": a["plain_ms"],
-            "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
-            "library_ms": a["library_ms"],
-            "library": "torch.nn.functional.scaled_dot_product_attention "
-                       "(no softcap)"})
+            "launches": launches[name], **a})
     for name, line in (("ssd_scan", 62), ("rglru_scan", 46)):
         record["kernels"].append({
             "name": name, "route": "cuda",

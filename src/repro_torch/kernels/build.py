@@ -4,20 +4,25 @@ with ``ctypes``.
 Each source in ``repro_torch/csrc`` compiles into its own shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
-         -shared -Xcompiler -fPIC -Xptxas -v -o lib<name>-<digest>.so <name>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -Xptxas -v [--fmad=false] [-lcuda]
+         -o lib<name>-<digest>.so <name>.cu
 
-``--fmad=false`` is part of the bit contract of ``cell_update`` and
-``hist_accum``: their plain PyTorch versions round every multiply and add
-on its own, and a contracted ``a*b+c`` would not. The attention kernels,
-held to their plain versions by a bf16 tolerance, are built with the
-same flags; so are ``ssd_scan`` (which writes its products as explicit
-``__fmaf_rn``) and ``rglru_scan`` (separately rounded, like its plain
-version). The libraries land in ``repro_torch/build/`` (git-ignored),
-named by a digest of the sources and flags, so an edited source
-rebuilds and an unchanged one loads as built. ``build_all`` starts one
-``nvcc`` per missing library, all at once, and waits for them together;
-a failed build raises with the compiler's output.
+The flags differ by source (``nvcc_flags``). ``--fmad=false`` is part of
+the bit contract of ``cell_update``, ``hist_accum`` and ``rglru_scan``:
+their plain PyTorch versions round every multiply and add on its own,
+and a contracted ``a*b+c`` would not. ``ssd_scan`` writes its products
+as explicit ``__fmaf_rn`` and keeps the flag as it was built with. The
+attention kernels, held to their plain versions by a bf16 tolerance,
+are built without it, so nvcc contracts their softmax arithmetic.
+``flash_attention`` links libcuda (``-lcuda``) for
+``cuTensorMapEncodeTiled``, which encodes its TMA tensor maps. The
+libraries land in ``repro_torch/build/`` (git-ignored), named by a
+digest of the sources and each one's own flags, so an edited source or
+a changed flag rebuilds and an unchanged one loads as built.
+``build_all`` starts one ``nvcc`` per missing library, all at once, and
+waits for them together; a failed build raises with the compiler's
+output.
 """
 from __future__ import annotations
 
@@ -36,8 +41,11 @@ BUILD_DIR = PKG_DIR / "build"
 SOURCES = ("hist_sketch", "cell_update", "flash_attention",
            "decode_attention", "ssd_scan", "rglru_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# held bit for bit (or, ssd_scan, product by product) to their plain versions
+NO_FMAD = ("hist_sketch", "cell_update", "ssd_scan", "rglru_scan")
+# call libcuda itself (cuTensorMapEncodeTiled)
+LINK_LIBCUDA = ("flash_attention",)
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -55,8 +63,17 @@ def nvcc_path() -> str:
                        "toolkit")
 
 
+def nvcc_flags(name: str) -> tuple[str, ...]:
+    """The ``nvcc`` flags of kernel source ``name`` (output and input
+    paths aside)."""
+    if name not in SOURCES:
+        raise ValueError(f"unknown kernel source {name!r}")
+    return (NVCC_FLAGS + (("--fmad=false",) if name in NO_FMAD else ())
+            + (("-lcuda",) if name in LINK_LIBCUDA else ()))
+
+
 def library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(nvcc_flags(name)).encode())
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -79,25 +96,36 @@ def build_all() -> dict[str, float]:
             return {}
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = nvcc_path()
+        # libcuda's link stub, where the toolkit has one
+        stubs = Path(nvcc).resolve().parent.parent / "lib64" / "stubs"
         t0 = time.perf_counter()
         procs = {}
         for name in todo:
             out = library_path(name)
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            flags = nvcc_flags(name)
+            libs = [f for f in flags if f.startswith("-l")]
+            if libs and stubs.is_dir():
+                libs.insert(0, f"-L{stubs}")
+            cmd = [nvcc, *(f for f in flags if not f.startswith("-l")),
+                   "-o", str(tmp), str(CSRC / f"{name}.cu"), *libs]
+            log = open(build_log(name), "w")
             procs[name] = (subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True), tmp, out)
+                cmd, stdout=log, stderr=subprocess.STDOUT, text=True), log,
+                tmp, out)
         secs, failed = {}, []
-        for name, (proc, tmp, out) in procs.items():
-            log, _ = proc.communicate()
-            secs[name] = time.perf_counter() - t0
-            build_log(name).write_text(log)
-            if proc.returncode != 0:
-                failed.append(f"--- {name} (nvcc exit {proc.returncode}):\n"
-                              f"{log}")
-                continue
-            os.replace(tmp, out)
+        while len(secs) < len(procs):  # each build's own seconds
+            for name, (proc, log, tmp, out) in procs.items():
+                if name in secs or proc.poll() is None:
+                    continue
+                secs[name] = time.perf_counter() - t0
+                log.close()
+                if proc.returncode != 0:
+                    failed.append(f"--- {name} (nvcc exit {proc.returncode})"
+                                  f":\n{build_log(name).read_text()}")
+                else:
+                    os.replace(tmp, out)
+            time.sleep(0.05)
         if failed:
             raise RuntimeError("CUDA kernel build failed:\n"
                                + "\n".join(failed))

@@ -2,7 +2,7 @@
 
 ``decode_attention`` takes the arguments of ``ref.decode_attention_ref``
 plus a ``kernel=`` mode (see ``repro_torch.kernels.dispatch``): a CUDA
-tensor launches the CUDA kernels under ``"auto"``/``"on"``, a CPU tensor
+tensor launches the CUDA kernel under ``"auto"``/``"on"``, a CPU tensor
 takes the plain version, ``"off"`` asks for the plain version on any
 device.
 """

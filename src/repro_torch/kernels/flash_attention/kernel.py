@@ -31,7 +31,8 @@ def _lib() -> ctypes.CDLL:
 
 def check_tensor(name: str, x: torch.Tensor, shape, device) -> None:
     """Raise unless ``x`` is a contiguous bf16 tensor of ``shape`` on
-    ``device`` (what the attention kernels take)."""
+    ``device``, its data 16-byte aligned (what the attention kernels take:
+    they copy rows 16 bytes at a time, and TMA needs the alignment)."""
     if x.device != device:
         raise ValueError(f"{name} is on {x.device}, expected {device}")
     if x.dtype != torch.bfloat16:
@@ -41,6 +42,8 @@ def check_tensor(name: str, x: torch.Tensor, shape, device) -> None:
                          f"{tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if x.data_ptr() % 16 != 0:
+        raise ValueError(f"{name}'s data must be 16-byte aligned")
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

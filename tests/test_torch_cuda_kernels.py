@@ -111,6 +111,16 @@ def _assert_attention_close(got, want, absolute=True):
     (1, 300, 8, 4, 256, 128, 50.0, 1),
     (1, 300, 8, 4, 256, 16, 50.0, 1),
     (1, 1000, 8, 4, 256, 128, 50.0, 8),
+    # edges of the 128-row query tiles and the 64-key KV tiles, B = 2
+    *[(2, s, 4, 2, 64, None, 50.0, 1)
+      for s in (1, 63, 64, 65, 127, 128, 129, 300)],
+    # every head dim of HEAD_DIMS on the one design
+    *[(1, 129, 4, 2, hd, None, None, 1) for hd in (16, 32, 64, 128, 256)],
+    # groups of 1, 2 and 16 query heads over a KV head
+    *[(1, 200, 16, 16 // g, 128, 100, None, 1) for g in (1, 2, 16)],
+    # a window shorter than a tile and one longer than S
+    (2, 300, 8, 4, 256, 16, 50.0, 8),
+    (2, 300, 8, 4, 256, 1000, 50.0, 1),
 ])
 def test_flash_attention_kernel_matches_plain(cuda_device, shape):
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -172,6 +182,71 @@ def test_decode_attention_kernel_masks_like_plain(cuda_device, case):
                                          softcap=50.0, kernel=mode)
                  for mode in ("on", "off"))
     _assert_attention_close(got, want)
+
+
+@pytest.mark.parametrize("case", [
+    # (B, cache length, H, KV, pos, window, slot layout)
+    (1, 1, 8, 4, 0, None, "dense"),          # one slot
+    (1, 4672, 8, 4, 4623, None, "dense"),    # not a multiple of the split
+    (1, 8192, 8, 4, 8000, None, "dense"),    # many splits and clusters
+    (1, 4672, 8, 4, 4623, None, "gap"),      # empty splits between live ones
+    (2, 512, 8, 4, 400, None, "dense"),      # B = 2 with KV = 4
+    (2, 300, 8, 4, 700, 300, "ring"),
+    (1, 2048, 16, 1, 2575, 2048, "ring"),    # recurrentgemma-9b's MQA ring
+])
+def test_decode_attention_kernel_splits(cuda_device, case):
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    b, length, h, kv, pos, window, layout = case
+    rng = np.random.default_rng(length + pos)
+    q = _bf16(rng, (b, 1, h, 256), cuda_device)
+    k, v = (_bf16(rng, (b, length, kv, 256), cuda_device) for _ in range(2))
+    s = np.arange(length)
+    slots = {"dense": np.where(s <= pos, s, -1),
+             "gap": np.where((s <= pos) & ((s < 1000) | (s >= 1300)), s, -1),
+             "ring": pos - (pos - s) % length}[layout]
+    slots = torch.from_numpy(slots.astype(np.int32)).to(cuda_device)
+    kw = dict(window=window, softcap=None if h == 16 else 50.0)
+    for _ in range(2):  # the second call finds the counters as the first left
+        before = da_kernel.decode_attention_cuda.launches
+        got = da_ops.decode_attention(q, k, v, slots, pos, kernel="on", **kw)
+        torch.cuda.synchronize()
+        assert da_kernel.decode_attention_cuda.launches == before + 1
+        want = da_ops.decode_attention(q, k, v, slots, pos, kernel="off",
+                                       **kw)
+        _assert_attention_close(got, want)
+
+
+@pytest.mark.parametrize("op", ["flash_attention", "decode_attention"])
+def test_attention_kernels_launch_once_per_call(cuda_device, op):
+    """The profiler sees one device kernel per call, and it is the
+    kernel's own."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    rng = np.random.default_rng(5)
+    if op == "flash_attention":
+        q, k, v = (_bf16(rng, (1, 300, n, 256), cuda_device) for n in (8, 4, 4))
+
+        def call():
+            return fa_ops.flash_attention(q, k, v, softcap=50.0, kernel="on")
+    else:
+        q = _bf16(rng, (1, 1, 8, 256), cuda_device)
+        k, v = (_bf16(rng, (1, 4672, 4, 256), cuda_device) for _ in range(2))
+        slots = torch.arange(4672, dtype=torch.int32, device=cuda_device)
+
+        def call():
+            return da_ops.decode_attention(q, k, v, slots, 4623, softcap=50.0,
+                                           kernel="on")
+    call()  # builds, loads and allocates what stays
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and f"{op}_kernel" in kernels[0], kernels
 
 
 def test_smoke_model_kernels_match_plain(cuda_device):

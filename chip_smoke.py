@@ -2,29 +2,37 @@
 """Drive the PyTorch port (``src/repro_torch``) on one CUDA card.
 
     python3 chip_smoke.py              # every phase; needs one card
-    python3 chip_smoke.py --gates      # phases 1, 5-7, gates recorded
-    python3 chip_smoke.py --faults     # --gates on planted faults F9-F11b
+    python3 chip_smoke.py --gates      # phases 1-3, 5-7, gates recorded
+    python3 chip_smoke.py --faults     # --gates on planted faults F9-F14
+    python3 chip_smoke.py --faults F12 F13 F14   # only those (+ control)
 
 Phases, each printing its own lines; any failure raises and exits
 nonzero:
 
   1. build the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
      per source, started together; each library's flags and build
-     seconds), print the attention libraries' SASS instruction counts
-     (wgmma, TMA, mbarrier, cp.async) and the card;
+     seconds), print the attention and cell_update libraries' SASS
+     instruction counts (wgmma, TMA, mbarrier, cp.async) and the card;
   2. hold the ``hist_accum`` kernel against its plain version: counts
      must be exactly equal;
   3. hold the ``cell_update`` kernel against its plain version on
      identical injected inputs, for every policy x service model, a
      degraded grid, the timed policies, a heterogeneous (``has_dists``)
-     grid and ragged padded chunks, with and without the sketch:
+     grid and ragged padded chunks, with and without the sketch, and at
+     every edge of its protocol (``interop.CELL_UPDATE_EDGES``: T of 1,
+     63, 777 and 4097, every K template up to 16 copies, N at
+     ``MAX_SERVERS``, 1,440 cells over 30 service rows, 100/256/2048 bins
+     with skipped steps, a chunk past the counters' flush interval):
      ``free``/``ssum``/``comp``/``cnt`` bit-equal, histograms exactly
-     equal; then time both at the main path's chunk shape;
+     equal; then time both at the main path's chunk shapes (the fig2
+     chunk, and the percentile run's chunk with the sketch, one launch);
   4. the main path through the kernels: the Figure 2 threshold sweep
      (15 families, N=20, 24 loads, k in {1,2}, 2 seeds = 1,440 cells,
      50k arrivals, chunks of 4096) and a 1M-arrival percentile run of
      the paper's exponential model, checked against the closed forms,
-     with the kernels' launch counts read around exactly that run; both
+     with the kernels' launch counts read around exactly that run (one
+     ``cell_update`` a chunk, and no ``hist_accum``: the sketch is binned
+     inside ``cell_update``, as on the TPU); both
      runs again with the sampling pipeline on and off (summaries must be
      bit-equal; wall times printed) and once under ``torch.profiler``
      for the device's idle share; plus a small mixed grid run with the
@@ -87,12 +95,16 @@ nonzero:
      model is freed before the next is made.
 
 The last two lines of standard output are the kernels' JSON record and
-``{"ok": true, "device": {...}}``. Needs CUDA and the repository's
+``{"ok": true, "device": {...}}``. A kernel's ``launches`` there are those
+of its main path's run (phase 4, 8, 10 or 12); ``hist_accum``, which no
+main path launches, reads 0 and gives its launches in phase 2 as
+``check_launches``. Needs CUDA and the repository's
 ``src/`` beside this script (or ``--src``); imports nothing of JAX or of
-``repro``. ``--gates`` records every gate of phases 5-7 (the worst
-multiple of its allowance) instead of stopping at the first that fails,
-and prints them as its last line; ``--faults`` runs it on a copy of the
-package for each planted fault of ``FAULTS``, the unedited package
+``repro``. ``--gates`` records every gate of phases 2, 3 and 5-7 (the
+worst multiple of its allowance; a bit gate as 0 or inf) instead of
+stopping at the first that fails, and prints them as its last line;
+``--faults`` runs it on a copy of the package for each planted fault of
+``FAULTS`` over the phases that hold its kernel, the unedited package
 first.
 """
 from __future__ import annotations
@@ -1050,6 +1062,91 @@ def serve_path(arch: str, phase: int, counters: dict) -> dict:
     return launches
 
 
+def bit_gate(gate: str, equal: bool, msg: str, raise_on_fail: bool) -> None:
+    """Record a bit gate as 0 (equal) or inf; a failure raises where
+    ``raise_on_fail``, and is only printed otherwise (``--gates``)."""
+    record_gate(gate, 0.0 if equal else math.inf)
+    if not equal:
+        if raise_on_fail:
+            raise AssertionError(msg)
+        log(f"    gate failed: {msg}")
+
+
+def hist_accum_check(dev, raise_on_fail: bool = True) -> float:
+    """Phase 2: ``hist_accum`` against its plain version, exact counts;
+    returns the max abs difference."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.hist_sketch import ops as hist_ops
+
+    worst = 0.0
+    rng = np.random.default_rng(7)
+    for n_bins in (100, 256, 2048):
+        for t, c in ((4096, 16), (4096, 1440), (777, 37)):
+            idx = torch.from_numpy(rng.integers(
+                -1, n_bins, (t, c)).astype(np.int32)).to(dev)
+            got = hist_ops.hist_accum(idx, n_bins=n_bins, kernel="on")
+            want = hist_ops.hist_accum(idx, n_bins=n_bins, kernel="off")
+            err = float((got - want).abs().max())
+            worst = max(worst, err)
+            bit_gate("phase 2 hist_accum", err == 0.0,
+                     f"hist_accum differs: n_bins={n_bins} T={t} C={c} "
+                     f"max|diff|={err}", raise_on_fail)
+    log(f"[2] hist_accum kernel == plain (exact counts) for n_bins "
+        f"100/256/2048 at (T,C) (4096,16) (4096,1440) (777,37)")
+    return worst
+
+
+def cell_kernel_check(dev, raise_on_fail: bool = True) -> float:
+    """Phase 3's bit gates: ``cell_update`` against its plain version on
+    identical injected inputs, on every arm of ``interop.CELL_UPDATE_ARMS``
+    (and a five-policy mix) and every edge of its protocol
+    (``interop.CELL_UPDATE_EDGES``); ``free``/``ssum``/``comp``/``cnt``
+    bit-equal and the histograms exactly equal. Returns the max abs
+    difference."""
+    import numpy as np
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.kernels.cell_update import ops as cell_ops
+
+    cases = {name: dict(kw, n_cells=160, n_seeds=4, n_servers=20,
+                        steps=2048)
+             for name, kw in interop.CELL_UPDATE_ARMS.items()}
+    cases["generic_mix"] = dict(k_max=3, policies=(0, 1, 2, 3, 4),
+                                models=(0, 1), mix=0.6, delay=0.7,
+                                n_cells=160, n_seeds=4, n_servers=20,
+                                steps=2048)
+    cases.update({f"edge {name}": dict({"n_servers": 20}, **kw)
+                  for name, kw in interop.CELL_UPDATE_EDGES.items()})
+    worst = 0.0
+    for name, kw in cases.items():
+        kw = dict(kw)
+        steps = kw.pop("steps")
+        args, static = interop.synthetic_chunk(11, steps=steps, **kw)
+        args = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                for k, v in args.items()}
+        outs = [cell_ops.cell_update(
+            *(args[k] for k in interop.CELL_UPDATE_ARGS), block=steps,
+            kernel=mode, **static) for mode in ("on", "off")]
+        torch.cuda.synchronize()
+        bad = []
+        for field, g, w in zip(("free", "ssum", "comp", "cnt", "hist"),
+                               *outs):
+            if g.numel():
+                worst = max(worst, float((g - w).abs().max()))
+            if not torch.equal(g, w):
+                bad.append(f"{field} ({int((g != w).sum())} differ)")
+        bit_gate(f"phase 3 {name}", not bad,
+                 f"cell_update {name}: not bit-equal in {', '.join(bad)}",
+                 raise_on_fail)
+        if not bad:
+            log(f"[3] cell_update kernel == plain bit for bit: {name} "
+                f"({json.dumps(kw)}, T={steps})")
+    return worst
+
+
 # Planted faults (``--faults``): each edits one kernel source of a copy of
 # the package, as (source, text found once, its replacement, what it does).
 FAULTS = {
@@ -1079,12 +1176,29 @@ FAULTS = {
              "is_last = done == n_clusters - 1;",
              "is_last = done == 0;",
              "the combine runs when the first cluster has published"),
+    # the cell_update protocol
+    "F12": ("cell_update",
+            "  mbar_wait(b.full + (tile & b.qmask), (tile >> b.qshift) & 1);\n",
+            "",
+            "the consumer never waits for a stage's full barrier, so it "
+            "reads each slot as soon as it gets there, before it is written"),
+    "F13": ("cell_update",
+            "const int n_live = min(TS, T - tile * TS);",
+            "const int n_live = T - tile * TS < TS ? 0 : TS;",
+            "the histogram warp skips the last tile where it is partial"),
+    "F14": ("cell_update",
+            "sts(o_t + 4 * e * G, __fdiv_rn(cum_e, rate));",
+            "sts(o_t + 4 * e * G, __fmul_rn(cum_e, __frcp_rn(rate)));",
+            "the producer computes t as cum * (1 / rate)"),
 }
+# phases of --gates that hold each source's kernel
+FAULT_PHASES = {"cell_update": [2, 3]}
+GATE_PHASES = [2, 3, 5, 6, 7]
 
 
 def sass_counts(lib_path) -> dict:
-    """Counts of the instructions that show the attention kernels' design
-    in a library's SASS (``cuobjdump -sass``): wgmma (HGMMA), TMA and bulk
+    """Counts of the instructions that show the kernels' designs in a
+    library's SASS (``cuobjdump -sass``): wgmma (HGMMA), TMA and bulk
     copies (UTMALDG, UBLKCP), mbarrier operations (SYNCS), cp.async
     (LDGSTS), mma.sync (HMMA), ldmatrix (LDSM)."""
     from repro_torch.kernels import build
@@ -1106,21 +1220,34 @@ def sass_counts(lib_path) -> dict:
                        "HMMA", "LDSM")}
 
 
-def run_faults() -> int:
-    """Plant each fault of ``FAULTS`` in a copy of the package (under the
-    git-ignored build directory, with the built libraries of the sources
-    it leaves alone), run phases 1 and 5-7 of this script on the copy with
-    ``--gates``, and print which gates rejected it: the worst multiple of
-    each gate's allowance (> 1 rejects). The unedited package runs first,
-    as the control."""
+def run_faults(names: list[str]) -> int:
+    """Plant each fault of ``FAULTS`` (or of ``names``) in a copy of the
+    package (under the git-ignored build directory, with the built
+    libraries of the sources it leaves alone), run this script on the copy
+    with ``--gates`` over the phases that hold its kernel
+    (``FAULT_PHASES``; 5-7 for the attention kernels), and print which
+    gates rejected it: the worst multiple of each gate's allowance (> 1
+    rejects; a bit gate reads 0 or inf). The unedited package runs first,
+    as the control, over the phases of every fault named."""
     import shutil
 
     from repro_torch.kernels import build
 
+    unknown = sorted(set(names) - set(FAULTS))
+    if unknown:
+        raise SystemExit(f"unknown faults {unknown}; FAULTS has "
+                         f"{sorted(FAULTS)}")
+    names = names or list(FAULTS)
+
+    def phases(fault):
+        return FAULT_PHASES.get(FAULTS[fault][0], [5, 6, 7])
+
     build.build_all()
     results = {}
-    for name in ("control", *FAULTS):
+    for name in ("control", *names):
         tree = ROOT / "src"
+        gate_phases = (sorted({p for f in names for p in phases(f)})
+                       if name == "control" else phases(name))
         if name != "control":
             source, old, new, what = FAULTS[name]
             tree = build.BUILD_DIR / "faults" / name
@@ -1139,8 +1266,9 @@ def run_faults() -> int:
             log(f"[faults] {name}: {what} ({source}.cu)")
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [sys.executable, str(ROOT / "chip_smoke.py"), "--gates", "--src",
-             str(tree)], capture_output=True, text=True, timeout=1500)
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--gates",
+             *map(str, gate_phases), "--src", str(tree)],
+            capture_output=True, text=True, timeout=1500)
         lines = proc.stdout.strip().splitlines()
         for ln in lines[:-1]:
             if "gate failed" in ln or "[7]" in ln or "build" in ln:
@@ -1166,13 +1294,15 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Drive the PyTorch port on one "
                                  "CUDA card (see the module's docstring).")
-    ap.add_argument("--gates", action="store_true",
-                    help="run phases 1 and 5-7 only, recording every gate "
-                         "instead of stopping at the first that fails; the "
-                         "last line is the gates' worst multiples")
-    ap.add_argument("--faults", action="store_true",
+    ap.add_argument("--gates", nargs="*", type=int, metavar="PHASE",
+                    help="run phase 1 and the gates of phases 2, 3, 5, 6 "
+                         "and 7 (or of the phases named), recording every "
+                         "gate instead of stopping at the first that "
+                         "fails; the last line is the gates' worst "
+                         "multiples")
+    ap.add_argument("--faults", nargs="*", metavar="FAULT",
                     help="run --gates on copies of the package with each "
-                         "planted fault of FAULTS")
+                         "planted fault of FAULTS (or of those named)")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the directory holding repro_torch (default: "
                          "src/ beside this script)")
@@ -1188,8 +1318,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if args.faults:
-        return run_faults()
+    if args.faults is not None:
+        return run_faults(args.faults)
     import numpy as np
 
     from repro_torch import interop
@@ -1232,72 +1362,41 @@ def main(argv=None) -> int:
                 if any(w in ln for w in ("registers", "bytes stack",
                                          "arning")):
                     log(f"[1] ptxas {name}: {ln.strip()}")
-    for name in ("flash_attention", "decode_attention"):
+    for name in ("flash_attention", "decode_attention", "cell_update"):
         log(f"[1] SASS of {name}: "
             f"{json.dumps(sass_counts(build.library_path(name)))}")
     card = gpu_line()
     log(f"[1] gpu: {card}")
-    if args.gates:
-        attention_kernels(dev, timed=False, raise_on_fail=False)
-        try:
-            lm_full(dev)
-        except AssertionError as exc:
-            log(f"    gate failed: {exc}")
+    if args.gates is not None:
+        phases = set(args.gates or GATE_PHASES)
+        if 2 in phases:
+            hist_accum_check(dev, raise_on_fail=False)
+        if 3 in phases:
+            try:
+                cell_kernel_check(dev, raise_on_fail=False)
+            except RuntimeError as exc:  # a launch that died
+                record_gate("phase 3 launch", math.inf)
+                log(f"    gate failed: {exc}")
+        if phases & {5, 6}:
+            attention_kernels(dev, timed=False, raise_on_fail=False)
+        if 7 in phases:
+            try:
+                lm_full(dev)
+            except AssertionError as exc:
+                log(f"    gate failed: {exc}")
         print(json.dumps({"gates": GATES}), flush=True)
         return 0
 
     # ---------------------------------------------------------------- 2
-    errs = {"cell_update": 0.0, "hist_accum": 0.0}
+    hist_kernel.hist_accum_cuda.launches = 0
+    errs = {"hist_accum": hist_accum_check(dev)}
+    # hist_accum's launches in this check, its only caller here: the main
+    # path bins inside cell_update, and phase 4 checks it launches none
+    hist_check_launches = hist_kernel.hist_accum_cuda.launches
     rng = np.random.default_rng(7)
-    for n_bins in (100, 256, 2048):
-        for t, c in ((4096, 16), (4096, 1440), (777, 37)):
-            idx = torch.from_numpy(rng.integers(
-                -1, n_bins, (t, c)).astype(np.int32)).to(dev)
-            got = hist_ops.hist_accum(idx, n_bins=n_bins, kernel="on")
-            want = hist_ops.hist_accum(idx, n_bins=n_bins, kernel="off")
-            err = float((got - want).abs().max())
-            errs["hist_accum"] = max(errs["hist_accum"], err)
-            if err != 0.0:
-                raise AssertionError(f"hist_accum differs: n_bins={n_bins} "
-                                     f"T={t} C={c} max|diff|={err}")
-    log(f"[2] hist_accum kernel == plain (exact counts) for n_bins "
-        f"100/256/2048 at (T,C) (4096,16) (4096,1440) (777,37)")
 
     # ---------------------------------------------------------------- 3
-    def on_card(args):
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-                for k, v in args.items()}
-
-    def call(args, static, kernel):
-        return cell_ops.cell_update(
-            *(args[k] for k in interop.CELL_UPDATE_ARGS), block=512,
-            kernel=kernel, **static)
-
-    arms = dict(interop.CELL_UPDATE_ARMS, generic_mix=dict(
-        k_max=3, policies=(0, 1, 2, 3, 4), models=(0, 1), mix=0.6,
-        delay=0.7))
-    for name, kw in arms.items():
-        args, static = interop.synthetic_chunk(
-            11, n_cells=160, n_seeds=4, n_servers=20, steps=2048, **kw)
-        args = on_card(args)
-        got = call(args, static, "on")
-        want = call(args, static, "off")
-        torch.cuda.synchronize()
-        flips = 0
-        for field, g, w in zip(("free", "ssum", "comp", "cnt", "hist"),
-                               got, want):
-            err = float((g - w).abs().max()) if g.numel() else 0.0
-            errs["cell_update"] = max(errs["cell_update"], err)
-            if field == "hist":
-                flips = int((g != w).sum())
-                if flips:
-                    raise AssertionError(f"{name}: {flips} histogram bins "
-                                         f"differ (bound 0)")
-            elif not torch.equal(g, w):
-                raise AssertionError(f"{name}: {field} not bit-equal "
-                                     f"(max|diff|={err})")
-        log(f"[3] cell_update kernel == plain bit for bit: {name} "
-            f"({json.dumps(kw)}), histogram flips {flips}")
+    errs["cell_update"] = cell_kernel_check(dev)
 
     # timing at the main path's chunk shapes: the fig2 sweep's first
     # chunk, sampled and laid out by the engine itself
@@ -1364,14 +1463,14 @@ def main(argv=None) -> int:
         return cell_ops.cell_update(*p_args, n_bins=nb, block=512,
                                     kernel=kernel, **pgrid.flags())
 
-    ms_pcell = cuda_ms(lambda: p_chunk("on"), 5, "cell_update + hist")
+    ms_pcell = cuda_ms(lambda: p_chunk("on"), 5, "cell_update, sketch on")
     for field, g, w in zip(("free", "ssum", "comp", "cnt", "hist"),
                            p_chunk("on"), p_chunk("off")):
         if not torch.equal(g, w):
             raise AssertionError(f"percentile chunk: {field} not bit-equal")
-    log(f"[3] cell_update + hist_accum at the percentile run's chunk "
-        f"(C=12, N=20, T={CHUNK}, 2048 bins; kernel == plain bit for bit): "
-        f"{ms_pcell:.4f} ms")
+    log(f"[3] cell_update with the sketch at the percentile run's chunk "
+        f"(C=12, N=20, T={CHUNK}, 2048 bins, one launch; kernel == plain "
+        f"bit for bit): {ms_pcell:.4f} ms")
     hc = pgrid.plan.n_padded
     # bin indices of M/M/1-like responses (mean 2), a tenth skipped
     resp = torch.from_numpy(rng.exponential(2.0, (CHUNK, hc)).astype(
@@ -1412,6 +1511,7 @@ def main(argv=None) -> int:
                                       device="cuda")
     torch.cuda.synchronize()
     t_fig2 = time.perf_counter() - t0
+    fig2_launches = cell_kernel.cell_update_cuda.launches
     t0 = time.perf_counter()
     out = queueing.run(100, Scenario.paper_default(dists.exponential()),
                        p_rhos, p_cfg, n_seeds=2,
@@ -1421,13 +1521,21 @@ def main(argv=None) -> int:
     t_pct = time.perf_counter() - t0
     launches = {"cell_update": cell_kernel.cell_update_cuda.launches,
                 "hist_accum": hist_kernel.hist_accum_cuda.launches}
+    pct_launches = launches["cell_update"] - fig2_launches
     log(f"[4] fig2 sweep (1440 cells x 50k arrivals) + exponential sweep "
         f"(96 cells): {t_fig2}s wall; "
         f"1M-arrival percentile run (12 cells): {t_pct}s wall; kernel "
-        f"launches {json.dumps(launches)}")
-    if min(launches.values()) <= 0:
+        f"launches {json.dumps(launches)}, {pct_launches} of cell_update "
+        f"in the percentile run")
+    if launches["cell_update"] <= 0:
         raise AssertionError(f"a kernel of the main path never launched: "
                              f"{launches}")
+    # the sketch is binned inside cell_update: one launch a chunk
+    if launches["hist_accum"] != 0 or \
+            pct_launches != math.ceil(p_cfg.n_arrivals / CHUNK):
+        raise AssertionError(f"the main path launched hist_accum, or not "
+                             f"one cell_update a chunk: {launches}, "
+                             f"{pct_launches} in the percentile run")
     names = ([f"pareto(a={a:g})" for a in (6.0, 3.0, 2.5, 2.2, 2.05)]
              + [f"weibull(k={k:g})" for k in (2.0, 1.0, 0.7, 0.5, 0.4)]
              + [f"two_point(p={p:g})" for p in (0.1, 0.5, 0.8, 0.95, 0.99)])
@@ -1601,6 +1709,7 @@ def main(argv=None) -> int:
          "source": "src/repro_torch/csrc/hist_sketch.cu",
          "replaces": "src/repro/kernels/hist_sketch/kernel.py:81",
          "launches": launches["hist_accum"],
+         "check_launches": hist_check_launches,
          "max_abs_err": errs["hist_accum"], "ms": ms_hist,
          "plain_ms": plain_hist, "bound_ms": hist_bound,
          "bound_by": hist_by, "library_ms": lib_hist}]}

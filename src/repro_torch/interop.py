@@ -145,6 +145,34 @@ CELL_UPDATE_ARMS = {
 }
 
 
+# Edges of the CUDA kernel's protocol (keyword arguments of
+# ``synthetic_chunk``, ``steps`` included): chunk lengths that are not a
+# multiple of its tiles of 16-64 steps, every K template up to 16 copies,
+# the largest free-time grid, blocks over many seed and service rows,
+# sketch widths with skipped steps, and a chunk longer than the interval
+# at which its 16-bit histogram counters are flushed. No case pads more
+# steps than its last, partial tile holds at any tile (T mod 16, 32 and 64
+# are 12/28/60 at 700 steps, 12/28/28 at 1,500, 9 at 8,969), so that tile
+# always holds counted responses.
+CELL_UPDATE_EDGES = {
+    **{f"T{t}": dict(steps=t, n_cells=40, k_max=3, policies=(0, 1, 2, 3, 4),
+                     degraded=(0.1, 4.0, 0.05), delay=0.5, warmup=0)
+       for t in (1, 63, 777, 4097)},
+    **{f"k{k}": dict(steps=700, n_cells=48, k_max=k,
+                     policies=(0, 1, 2, 3, 4), models=(0, 1), delay=0.5,
+                     degraded=(0.1, 4.0, 0.05), pad=5)
+       for k in (1, 2, 3, 4, 5, 8, 9, 16)},
+    "max_servers": dict(steps=300, n_cells=40, k_max=2, policies=(0, 1, 2),
+                        n_servers=16_384),
+    "has_dists_1440": dict(steps=1000, n_cells=1440, k_max=2,
+                           policies=(0, 1, 2), models=(0, 1), n_dists=15),
+    **{f"bins{nb}": dict(steps=1500, n_cells=64, k_max=2, n_bins=nb,
+                         warmup=300, pad=7, degraded=(0.0, 1.0, 0.1))
+       for nb in (100, 256, 2048)},
+    "past_flush": dict(steps=8192 + 777, n_cells=8, k_max=2, pad=4),
+}
+
+
 def synthetic_chunk(seed: int, *, n_cells: int = 12, n_seeds: int = 2,
                     n_servers: int = 6, steps: int = 1024, k_max: int = 2,
                     policies=(0,), models=(0,), mix: float = 0.5,

@@ -21,18 +21,18 @@ def cell_update(free, ssum, comp, cnt, hist, cum, warm, valid, servers,
                 k_count=None):
     """One chunk of the cell update; returns ``(free, ssum, comp, cnt,
     hist)`` with ``free`` not yet rebased. ``block`` is the plain
-    version's sketch staging (the kernel bins every step as it goes);
-    ``has_timed`` gates the plain version's timed arm (the kernel
-    selects it per cell). ``k_count`` (C,) int32, the copy counts of
-    ``k_mask``'s prefix rows, spares the kernel path the check that
-    reads the device back (``kernel.prefix_counts``)."""
+    version's sketch staging (the kernel bins every step as it goes, in
+    the same launch); ``has_timed`` gates the timed arm (the kernel
+    selects it per cell, in its timed instance). ``k_count`` (C,) int32,
+    the copy counts of ``k_mask``'s prefix rows, spares the kernel path
+    the check that reads the device back (``kernel.prefix_counts``)."""
     if dispatch.use_kernel(kernel, free, cum, services):
         return cell_kernel.cell_update_cuda(
             free, ssum, comp, cnt, hist, cum, warm, valid, servers,
             services, seed_idx, rates, k_mask, ovh, policy_code,
             model_code, mix, p_slow, slow_factor, p_fail, delay, svc_idx,
-            n_bins=n_bins, has_shared=has_shared, has_dists=has_dists,
-            k_count=k_count)
+            n_bins=n_bins, has_shared=has_shared, has_timed=has_timed,
+            has_dists=has_dists, k_count=k_count)
     return cell_update_ref(
         free, ssum, comp, cnt, hist, cum, warm, valid, servers, services,
         seed_idx, rates, k_mask, ovh, policy_code, model_code, mix, p_slow,

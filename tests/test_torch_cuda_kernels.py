@@ -58,6 +58,73 @@ def test_cell_update_kernel_bit_equal_plain(cuda_device, arm):
         assert torch.equal(g, w), name
 
 
+def _cell_kernel_equals_plain(device, seed, steps, **kw):
+    """One chunk of ``synthetic_chunk`` through the kernel (one launch) and
+    the plain version on the card: every output bit-equal."""
+    args, static = interop.synthetic_chunk(seed, steps=steps, **kw)
+    t = [interop.to_tensor(args[k], device) for k in interop.CELL_UPDATE_ARGS]
+    before = cell_kernel.cell_update_cuda.launches
+    got = cell_ops.cell_update(*t, block=steps, kernel="on", **static)
+    torch.cuda.synchronize()
+    assert cell_kernel.cell_update_cuda.launches == before + 1
+    want = cell_ops.cell_update(*t, block=steps, kernel="off", **static)
+    for name, g, w in zip(("free", "ssum", "comp", "cnt", "hist"), got,
+                          want):
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("case", list(interop.CELL_UPDATE_EDGES))
+def test_cell_update_kernel_edges_bit_equal_plain(cuda_device, case):
+    kw = dict(interop.CELL_UPDATE_EDGES[case])
+    kw.setdefault("n_servers", 20)
+    _cell_kernel_equals_plain(cuda_device, 5, kw.pop("steps"), **kw)
+
+
+def test_main_path_sketch_launches_cell_update_once_a_chunk(cuda_device):
+    from repro_torch.kernels.hist_sketch import kernel as hist_kernel
+    d = dists.exponential()
+    cfg = queueing.SimConfig(n_servers=20, n_arrivals=4_000)
+    kw = dict(n_seeds=2, percentiles=(50.0, 99.0), chunk_size=1500,
+              device="cuda")
+    cell_kernel.cell_update_cuda.launches = 0
+    hist_kernel.hist_accum_cuda.launches = 0
+    a = queueing.run(4, Scenario.paper_default(d, ks=(1, 2)), [0.2, 0.4],
+                     cfg, kernel="on", **kw)
+    assert cell_kernel.cell_update_cuda.launches == 3   # ceil(4000 / 1500)
+    assert hist_kernel.hist_accum_cuda.launches == 0
+    b = queueing.run(4, Scenario.paper_default(d, ks=(1, 2)), [0.2, 0.4],
+                     cfg, kernel="off", **kw)
+    for key in ("mean", "completed", "p50", "p99"):
+        assert torch.equal(a[key], b[key]), key
+
+
+@pytest.mark.parametrize("timed", (False, True))
+def test_cell_plan_smem_equals_the_library_layout(cuda_device, timed):
+    # the Python count the launch plan chooses by, against the library's
+    # make_layout: at every template, N and bin count of the plan tests,
+    # and at every block, tile and stage count the plan weighs
+    for K in cell_kernel.K_TEMPLATES:
+        for N in (20, 1000, cell_kernel.MAX_SERVERS):
+            for n_bins in (0, 100, 2048, 58_112):
+                k_max = min(K, N)
+                shape = dict(n_servers=N, k_max=k_max, n_svc=2 * k_max + 1,
+                             n_bins=n_bins, seed_rows=30, svc_rows=30,
+                             timed=timed)
+                for g in (32, 16, 8, 4, 2, 1):
+                    for ts in cell_kernel.TILES:
+                        for q in cell_kernel.STAGES:
+                            need = cell_kernel.smem_bytes(
+                                cells=g, tile=ts, stages=q, n_servers=N,
+                                k_template=K, k_max=k_max,
+                                n_svc=2 * k_max + 1, n_bins=n_bins,
+                                seed_rows=min(g, 30), svc_rows=min(g, 30),
+                                timed=timed)
+                            plan = cell_kernel.LaunchPlan(K, g, ts, q, need,
+                                                          0)
+                            assert cell_kernel.library_smem_bytes(
+                                plan, **shape) == need, (plan, shape)
+
+
 def test_run_with_kernels_equals_plain_run(cuda_device):
     d = dists.pareto(2.2)
     grid = (Scenario.paper_default(d, ks=(1, 2)),

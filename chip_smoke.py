@@ -2,8 +2,8 @@
 """Drive the PyTorch port (``src/repro_torch``) on one CUDA card.
 
     python3 chip_smoke.py              # every phase; needs one card
-    python3 chip_smoke.py --gates      # phases 1-3, 5-7, gates recorded
-    python3 chip_smoke.py --faults     # --gates on planted faults F9-F14
+    python3 chip_smoke.py --gates      # phases 1-3, 5-7, 9, 11, gates recorded
+    python3 chip_smoke.py --faults     # --gates on planted faults F9-F18
     python3 chip_smoke.py --faults F12 F13 F14   # only those (+ control)
 
 Phases, each printing its own lines; any failure raises and exits
@@ -11,8 +11,9 @@ nonzero:
 
   1. build the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
      per source, started together; each library's flags and build
-     seconds), print the attention and cell_update libraries' SASS
-     instruction counts (wgmma, TMA, mbarrier, cp.async) and the card;
+     seconds), print the attention, cell_update and recurrent libraries'
+     SASS instruction counts (wgmma, TMA, mbarrier, cp.async, mma.sync)
+     and the card;
   2. hold the ``hist_accum`` kernel against its plain version: counts
      must be exactly equal;
   3. hold the ``cell_update`` kernel against its plain version on
@@ -78,7 +79,9 @@ nonzero:
      mamba2-370m's shape (Q=256, H=32, P=64, N=128), 1 and 16 chunks,
      standard-normal inputs and inputs as the model makes them, and a
      padded chunk (a 16-token prompt): every element within 5e-3 + 5e-3
-     |plain| (tests/test_kernels.py); time both and the bound at 16 chunks;
+     |plain| (tests/test_kernels.py); time both and the bound (split TF32
+     on the tensor cores, beside the float32 CUDA-core bound) at 16 chunks
+     and at one padded chunk;
  10. mamba2-370m at full width and depth (48 layers): a 4096-token prompt
      (16 chunks) and 16 decode steps, as phase 7 (every ``ssd_scan`` call
      also checked against its plain version; logits with the kernel within
@@ -87,7 +90,9 @@ nonzero:
      requests on 2 hedged replicas through ``launch.serve.main`` with the
      launch counts read around exactly that run;
  11. hold the ``rglru_scan`` kernel against its plain version bit for bit
-     at (1, 4096, 4096) and ragged lengths; time both and the bound;
+     at (1, 4096, 4096), ragged lengths and the served prompt's 16 steps;
+     time both and the bound at (1, 4096, 4096), (1, 16, 4096) and
+     (1, 2560, 4096);
  12. recurrentgemma-9b at full width and depth (38 layers, 8.5B
      parameters): a 2560-token prompt (past the window of 2048) and 16
      decode steps, as phase 10 with ``rglru_scan``, ``flash_attention`` and
@@ -100,8 +105,8 @@ of its main path's run (phase 4, 8, 10 or 12); ``hist_accum``, which no
 main path launches, reads 0 and gives its launches in phase 2 as
 ``check_launches``. Needs CUDA and the repository's
 ``src/`` beside this script (or ``--src``); imports nothing of JAX or of
-``repro``. ``--gates`` records every gate of phases 2, 3 and 5-7 (the
-worst multiple of its allowance; a bit gate as 0 or inf) instead of
+``repro``. ``--gates`` records every gate of phases 2, 3, 5-7, 9 and 11
+(the worst multiple of its allowance; a bit gate as 0 or inf) instead of
 stopping at the first that fails, and prints them as its last line;
 ``--faults`` runs it on a copy of the package for each planted fault of
 ``FAULTS`` over the phases that hold its kernel, the unedited package
@@ -120,11 +125,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # Published H100 SXM peaks (NVIDIA data sheet): device memory rate, the
-# float32 rate outside the tensor cores and the dense bf16 tensor-core
-# rate, for the kernels' bounds.
+# float32 rate outside the tensor cores and the dense bf16 and TF32
+# tensor-core rates, for the kernels' bounds.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+TF32_OPS_PER_S = 495e12
 
 ATTN_TOL = 2e-2    # bf16 tolerance of tests/test_kernels.py, anywhere
 ATTN_REL = 2**-6   # per row, of the row's largest |value|: two bf16 ulps
@@ -790,9 +796,38 @@ def ssd_inputs(dev, n_chunks: int, model_like: bool, valid: int | None,
     return xc, bc, cc, dtc, cum
 
 
-def ssd_kernel(dev) -> dict:
+def ssd_bound(n_chunks: int) -> dict:
+    """Bounds of ``ssd_scan`` at ``n_chunks`` chunks of mamba2-370m's shape:
+    bytes (x, B, C, dt, cum read and y, states written once) against the
+    three products' flops, three times over (split TF32) at the dense TF32
+    rate, plus the weights' and gates' elementwise operations at the
+    float32 rate; beside it the bound of the same work in float32 on the
+    CUDA cores."""
+    bc_n, (q, h, p, n) = n_chunks, SSD_SHAPE
+    pairs = q * (q + 1) // 2
+    # C B^T once per chunk over the causal half, W X and the state product
+    # per head
+    products = (bc_n * pairs * n * 2 + bc_n * h * pairs * p * 2
+                + bc_n * h * q * p * n * 2)
+    # per (pair, head) the weight: a subtraction, exp and two products; per
+    # (row, head) the gate (a subtraction, exp and a product) and X gate
+    elementwise = bc_n * h * (pairs * 4 + q * (3 + p))
+    n_bytes = 4 * (2 * bc_n * q * h * p + 2 * bc_n * q * n + 2 * bc_n * q * h
+                   + bc_n * h * p * n)
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = 3 * products / TF32_OPS_PER_S + elementwise / F32_OPS_PER_S
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                f32_bound_ms=1e3 * max(t_bytes, (products + elementwise)
+                                       / F32_OPS_PER_S),
+                products=products, elementwise=elementwise, n_bytes=n_bytes)
+
+
+def ssd_kernel(dev, timed: bool = True, raise_on_fail: bool = True) -> dict:
     """Phase 9: ``ssd_scan`` against its plain version at mamba2-370m's
-    shape; times and bound at the 4096-token prefill's 16 chunks."""
+    shape; times and bounds at the 4096-token prefill's 16 chunks and at a
+    served prompt's one padded chunk. ``raise_on_fail`` False records each
+    case's worst element in ``GATES`` and goes on (``--gates``)."""
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
     worst = 0.0
@@ -803,6 +838,10 @@ def ssd_kernel(dev) -> dict:
         got = ssd_ops.ssd_intra_chunk(*args, kernel="on")
         want = ssd_ops.ssd_intra_chunk(*args, kernel="off")
         err, ratio = ssd_err(got, want)
+        case = (f"{n_chunks} chunk(s), "
+                f"{'model-like' if model_like else 'standard normal'}"
+                f"{f', {valid} valid rows' if valid else ''}")
+        record_gate(f"phase 9 {case}", ratio)
         log(f"[9] ssd_scan {n_chunks} chunk(s) of Q={SSD_SHAPE[0]}, H="
             f"{SSD_SHAPE[1]}, P={SSD_SHAPE[2]}, N={SSD_SHAPE[3]}, inputs "
             f"{'as the model makes them' if model_like else 'standard normal'}"
@@ -812,8 +851,11 @@ def ssd_kernel(dev) -> dict:
             f"{float(want[0].abs().max())}, |state| "
             f"{float(want[1].abs().max())})")
         if not ratio <= 1.0:
-            raise AssertionError(f"ssd_scan differs from its plain version: "
-                                 f"worst element at {ratio} of its allowance")
+            msg = (f"ssd_scan differs from its plain version ({case}): worst "
+                   f"element at {ratio} of its allowance")
+            if raise_on_fail:
+                raise AssertionError(msg)
+            log(f"    gate failed: {msg}")
         worst = max(worst, err)
         if n_chunks == 1 and valid is None:
             # both against the plain version in float64: the kernel's own
@@ -827,37 +869,49 @@ def ssd_kernel(dev) -> dict:
                 f"{dist(got)}, plain {dist(want)} (y, states); kernel "
                 f"bit-equal to plain "
                 f"{all(bool((g == w).all()) for g, w in zip(got, want))}")
-    args = ssd_inputs(dev, 16, True, None, 99)
-    ms = cuda_ms(lambda: ssd_ops.ssd_intra_chunk(*args, kernel="on"), 20,
-                 "ssd_scan")
-    plain = cuda_ms(lambda: ssd_ops.ssd_intra_chunk(*args, kernel="off"), 5,
-                    "ssd_scan plain")
-    bc_n, (q, h, p, n) = 16, SSD_SHAPE
-    pairs = q * (q + 1) // 2
-    # C B^T once per chunk over the causal half; per head the weights (a
-    # subtraction, exp and two products a pair), W X and the state product
-    n_ops = (bc_n * pairs * n * 2 + bc_n * h * pairs * (p * 2 + 4)
-             + bc_n * h * q * p * n * 2)
-    n_bytes = 4 * (2 * bc_n * q * h * p + 2 * bc_n * q * n + 2 * bc_n * q * h
-                   + bc_n * h * p * n)
-    bms, by = bound(n_bytes, n_ops, F32_OPS_PER_S)
-    log(f"[9] ssd_scan at 16 chunks: kernel {ms} ms, plain {plain} ms, bound "
-        f"{bms} ms ({by}; {n_ops} operations, {n_bytes} bytes); no single "
-        f"PyTorch call computes it")
-    return dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                library_ms=None, max_abs_err=worst)
+    if not timed:
+        return {}
+    shapes = []
+    for n_chunks, valid in ((16, None), (1, 16)):
+        args = ssd_inputs(dev, n_chunks, True, valid, 99)
+        ms = cuda_ms(lambda: ssd_ops.ssd_intra_chunk(*args, kernel="on"), 20,
+                     "ssd_scan")
+        plain = cuda_ms(lambda: ssd_ops.ssd_intra_chunk(*args, kernel="off"),
+                        5, "ssd_scan plain")
+        b = ssd_bound(n_chunks)
+        shapes.append(dict(shape=[1, n_chunks, *SSD_SHAPE], valid_rows=valid,
+                           ms=ms, plain_ms=plain, bound_ms=b["bound_ms"],
+                           bound_by=b["bound_by"]))
+        log(f"[9] ssd_scan at {n_chunks} chunk(s)"
+            f"{f' ({valid} valid rows: a served prompt)' if valid else ''}: "
+            f"kernel {ms} ms, plain {plain} ms, bound {b['bound_ms']} ms "
+            f"({b['bound_by']}; {b['products']} flops of products x 3 at "
+            f"{TF32_OPS_PER_S} TF32, {b['elementwise']} elementwise at "
+            f"{F32_OPS_PER_S}, {b['n_bytes']} bytes; the bound counts every "
+            f"row of the chunk), float32 CUDA-core bound "
+            f"{b['f32_bound_ms']} ms; no single PyTorch call computes it")
+    table = shapes[0]
+    return dict(ms=table["ms"], plain_ms=table["plain_ms"],
+                bound_ms=table["bound_ms"], bound_by=table["bound_by"],
+                library_ms=None, max_abs_err=worst, served=shapes[1])
 
 
-def scan_kernel(dev) -> dict:
+def scan_kernel(dev, timed: bool = True, raise_on_fail: bool = True) -> dict:
     """Phase 11: ``rglru_scan`` against its plain version, bit for bit, at
-    recurrentgemma-9b's width; times and bound at (1, 4096, 4096)."""
+    recurrentgemma-9b's width; times and bound at (1, 4096, 4096) (the
+    table's shape), (1, 16, 4096) (a served prompt) and (1, 2560, 4096)
+    (phase 12's prefill). ``raise_on_fail`` False records each shape's bit
+    gate in ``GATES`` and goes on (``--gates``)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.rglru_scan import ops as scan_ops
 
     g = torch.Generator(dev).manual_seed(11)
-    for shape in ((1, 4096, SCAN_W), (1, 2573, SCAN_W), (2, 77, SCAN_W)):
+    timed_shapes = ((1, 4096, SCAN_W), (1, 16, SCAN_W), (1, RG_PROMPT, SCAN_W))
+    rec, shapes = {}, []
+    for shape in ((1, 4096, SCAN_W), (1, 2573, SCAN_W), (2, 77, SCAN_W),
+                  (1, 16, SCAN_W), (1, RG_PROMPT, SCAN_W)):
         # a = exp(-8 softplus(2) sigmoid(z)) and b ~ sqrt(1 - a^2) z, as the
         # gates make them
         a = torch.exp(-8.0 * F.softplus(torch.tensor(2.0)) * torch.sigmoid(
@@ -869,10 +923,10 @@ def scan_kernel(dev) -> dict:
         log(f"[11] rglru_scan {shape}: bit-equal to its plain version "
             f"{ratio == 0.0} (max abs diff {err}; largest |h| "
             f"{float(want.abs().max())})")
-        if ratio != 0.0:
-            raise AssertionError(f"rglru_scan {shape} is not bit-equal to its "
-                                 f"plain version (max abs diff {err})")
-        if shape[1] == 4096:
+        bit_gate(f"phase 11 {shape}", ratio == 0.0,
+                 f"rglru_scan {shape} is not bit-equal to its plain version "
+                 f"(max abs diff {err})", raise_on_fail)
+        if timed and shape in timed_shapes:
             ms = cuda_ms(lambda: scan_ops.linear_scan(a, b, kernel="on"), 20,
                          "rglru_scan")
             plain = cuda_ms(lambda: scan_ops.linear_scan(a, b, kernel="off"),
@@ -881,8 +935,14 @@ def scan_kernel(dev) -> dict:
             bms, by = bound(3 * 4 * n, 2 * n, F32_OPS_PER_S)
             log(f"[11] rglru_scan {shape}: kernel {ms} ms, plain {plain} ms, "
                 f"bound {bms} ms ({by}); no single PyTorch call computes it")
-            rec = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                       library_ms=None, max_abs_err=0.0)
+            shapes.append(dict(shape=list(shape), ms=ms, plain_ms=plain,
+                               bound_ms=bms, bound_by=by))
+    if timed:
+        table = shapes[0]
+        rec = dict(ms=table["ms"], plain_ms=table["plain_ms"],
+                   bound_ms=table["bound_ms"], bound_by=table["bound_by"],
+                   library_ms=None, max_abs_err=0.0, served=shapes[1],
+                   prefill=shapes[2])
     return rec
 
 
@@ -1190,10 +1250,37 @@ FAULTS = {
             "sts(o_t + 4 * e * G, __fdiv_rn(cum_e, rate));",
             "sts(o_t + 4 * e * G, __fmul_rn(cum_e, __frcp_rn(rate)));",
             "the producer computes t as cum * (1 / rate)"),
+    # the recurrent kernels' split-TF32 products and staged ring
+    "F15": ("ssd_scan",
+            "    if (i < live) mma(d[i], al, bh[i]);\n#pragma unroll\n"
+            "  for (int i = 0; i < n; ++i)\n"
+            "    if (i < live) mma(d[i], ah, bl[i]);\n",
+            "    if (i < live) {}\n",
+            "the split's correction products are dropped: single-pass TF32"),
+    "F16": ("ssd_scan",
+            "if (kt == qt && 8 * j > warp * 16 + 15) break;",
+            "if (kt == qt) break;",
+            "W X skips the diagonal key tile"),
+    "F17": ("rglru_scan",
+            "      mbar_wait(full + s, (k / S) & 1);\n",
+            "      if (k + 1 < n_tiles) mbar_wait(full + s, (k / S) & 1);\n",
+            "the consumer does not wait for the last tile's copies to land"),
+    # the stronger form of F17, for a race that the timing may hide; a
+    # consumer that never waited could lap the producer by two phases of a
+    # stage, and its parity wait would then hang
+    "F17b": ("rglru_scan",
+             "      mbar_wait(full + s, (k / S) & 1);\n",
+             "      if (k >= S) mbar_wait(full + s, (k / S) & 1);\n",
+             "the consumer reads each stage's first tile without waiting for "
+             "its copies"),
+    "F18": ("rglru_scan",
+            "const int n_tiles = (L + kTile - 1) / kTile;",
+            "const int n_tiles = L / kTile;",
+            "the ragged last time tile is dropped"),
 }
 # phases of --gates that hold each source's kernel
-FAULT_PHASES = {"cell_update": [2, 3]}
-GATE_PHASES = [2, 3, 5, 6, 7]
+FAULT_PHASES = {"cell_update": [2, 3], "ssd_scan": [9], "rglru_scan": [11]}
+GATE_PHASES = [2, 3, 5, 6, 7, 9, 11]
 
 
 def sass_counts(lib_path) -> dict:
@@ -1220,6 +1307,33 @@ def sass_counts(lib_path) -> dict:
                        "HMMA", "LDSM")}
 
 
+def planted_tree(name: str, source: str, edits,
+                 src: Path = ROOT / "src") -> Path:
+    """A copy of ``src``'s package with ``edits`` (pairs of a text found
+    once and its replacement) made in ``csrc/<source>.cu``, under that
+    package's git-ignored build directory, with its built libraries copied
+    over (the sources left alone load as built). Raises where a text is
+    not found once."""
+    import shutil
+    built = src / "repro_torch" / "build"
+    tree = built / "faults" / name
+    shutil.rmtree(tree, ignore_errors=True)
+    shutil.copytree(src / "repro_torch", tree / "repro_torch",
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    if built.is_dir():
+        shutil.copytree(built, tree / "repro_torch" / "build",
+                        ignore=shutil.ignore_patterns("faults"))
+    cu = tree / "repro_torch" / "csrc" / f"{source}.cu"
+    text = cu.read_text()
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise AssertionError(f"{name}: {old!r} is not found once in "
+                                 f"{source}.cu")
+        text = text.replace(old, new)
+    cu.write_text(text)
+    return tree
+
+
 def run_faults(names: list[str]) -> int:
     """Plant each fault of ``FAULTS`` (or of ``names``) in a copy of the
     package (under the git-ignored build directory, with the built
@@ -1229,8 +1343,6 @@ def run_faults(names: list[str]) -> int:
     gates rejected it: the worst multiple of each gate's allowance (> 1
     rejects; a bit gate reads 0 or inf). The unedited package runs first,
     as the control, over the phases of every fault named."""
-    import shutil
-
     from repro_torch.kernels import build
 
     unknown = sorted(set(names) - set(FAULTS))
@@ -1250,19 +1362,7 @@ def run_faults(names: list[str]) -> int:
                        if name == "control" else phases(name))
         if name != "control":
             source, old, new, what = FAULTS[name]
-            tree = build.BUILD_DIR / "faults" / name
-            shutil.rmtree(tree, ignore_errors=True)
-            shutil.copytree(ROOT / "src" / "repro_torch", tree / "repro_torch",
-                            ignore=shutil.ignore_patterns("build",
-                                                          "__pycache__"))
-            shutil.copytree(build.BUILD_DIR, tree / "repro_torch" / "build",
-                            ignore=shutil.ignore_patterns("faults"))
-            cu = tree / "repro_torch" / "csrc" / f"{source}.cu"
-            text = cu.read_text()
-            if text.count(old) != 1:
-                raise AssertionError(f"{name}: its text is not found once in "
-                                     f"{source}.cu")
-            cu.write_text(text.replace(old, new))
+            tree = planted_tree(name, source, [(old, new)])
             log(f"[faults] {name}: {what} ({source}.cu)")
         t0 = time.perf_counter()
         proc = subprocess.run(
@@ -1271,7 +1371,8 @@ def run_faults(names: list[str]) -> int:
             capture_output=True, text=True, timeout=1500)
         lines = proc.stdout.strip().splitlines()
         for ln in lines[:-1]:
-            if "gate failed" in ln or "[7]" in ln or "build" in ln:
+            if "gate failed" in ln or "build" in ln or ln.startswith(
+                    ("[7]", "[9]", "[11]")):
                 log(f"[faults] {name} | {ln.strip()[:400]}")
         try:
             gates = json.loads(lines[-1])["gates"]
@@ -1295,9 +1396,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the PyTorch port on one "
                                  "CUDA card (see the module's docstring).")
     ap.add_argument("--gates", nargs="*", type=int, metavar="PHASE",
-                    help="run phase 1 and the gates of phases 2, 3, 5, 6 "
-                         "and 7 (or of the phases named), recording every "
-                         "gate instead of stopping at the first that "
+                    help="run phase 1 and the gates of phases 2, 3, 5, 6, "
+                         "7, 9 and 11 (or of the phases named), recording "
+                         "every gate instead of stopping at the first that "
                          "fails; the last line is the gates' worst "
                          "multiples")
     ap.add_argument("--faults", nargs="*", metavar="FAULT",
@@ -1362,7 +1463,8 @@ def main(argv=None) -> int:
                 if any(w in ln for w in ("registers", "bytes stack",
                                          "arning")):
                     log(f"[1] ptxas {name}: {ln.strip()}")
-    for name in ("flash_attention", "decode_attention", "cell_update"):
+    for name in ("flash_attention", "decode_attention", "cell_update",
+                 "ssd_scan", "rglru_scan"):
         log(f"[1] SASS of {name}: "
             f"{json.dumps(sass_counts(build.library_path(name)))}")
     card = gpu_line()
@@ -1384,6 +1486,13 @@ def main(argv=None) -> int:
                 lm_full(dev)
             except AssertionError as exc:
                 log(f"    gate failed: {exc}")
+        for phase, check in ((9, ssd_kernel), (11, scan_kernel)):
+            if phase in phases:
+                try:
+                    check(dev, timed=False, raise_on_fail=False)
+                except RuntimeError as exc:  # a launch that died
+                    record_gate(f"phase {phase} launch", math.inf)
+                    log(f"    gate failed: {exc}")
         print(json.dumps({"gates": GATES}), flush=True)
         return 0
 

@@ -1,5 +1,5 @@
 // Mamba-2 SSD intra-chunk term: the chunked algorithm's quadratic part and
-// each chunk's contributed state, in float32 on the CUDA cores.
+// each chunk's contributed state, in one launch on the tensor cores.
 //
 // Replaces the TPU kernel src/repro/kernels/ssd_scan/kernel.py
 // (_ssd_kernel / ssd_intra_chunk_flat, pl.pallas_call at :62). The plain
@@ -11,269 +11,517 @@
 //   y[q]   = sum_{s <= q} (C_q . B_s) exp(cum_q - cum_s) dt_s X_s
 //   state  = sum_q (X_q exp(cum_{Q-1} - cum_q) dt_q) outer B_q
 //
-// The TPU kernel held a whole chunk in VMEM per (chunk, head) and formed
-// C B^T for every head. At mamba2-370m (Q = 256, N = 128) B and C alone are
-// 128 KB each in float32, so here the chunk is tiled, and C B^T, which the
-// heads share, is formed once per chunk. Three kernels:
-//   ssd_scores: one CTA of 256 threads per (64 x 64 tile on or below the
-//     diagonal, chunk) writes G = C B^T into scratch (BC, Q, Q); each
-//     thread sums 4 x 4 products over N.
-//   ssd_y: one CTA per (tile of 64 query rows, head, chunk) walks the key
-//     tiles s0 <= its last row (the causal half only): X, cum and dt of the
-//     tile go to shared memory, the weights (G * exp(cum_q - cum_s)) * dt_s
-//     are selected to 0 above the diagonal (the exponent overflows there: a
-//     select, never a multiply by a 0/1 mask, which would give inf * 0 =
-//     NaN), and W X is added into 4 x P/16 register accumulators a thread.
-//   ssd_state: one CTA of 128 threads per (64 x 128 block of the state,
-//     head, chunk) sums (X_q exp(total - cum_q) dt_q) outer B_q over the
-//     chunk in tiles of 32 rows, 8 x 8 accumulators a thread.
-// Every sum runs over its index in order, one __fmaf_rn a term (the library
-// is built with --fmad=false, the bit contract of cell_update, which would
-// split every a * b + c in two).
+// Bound on this card: at mamba2-370m's prefill of 16 chunks (Q = 256,
+// H = 32, P = 64, N = 128) the three products are ~4.4 GFLOP against ~89 MB
+// of inputs and outputs: 0.066 ms at the float32 rate of the CUDA cores, so
+// the products run on the tensor cores (mma.sync m16n8k8 in TF32). One TF32
+// pass keeps 11 bits of each operand, which misses the gate of
+// tests/test_kernels.py (5e-3 + 5e-3 |plain|) by ~5x at standard-normal
+// inputs. So every operand is split, x = hi + lo with both rounded to TF32
+// (as cvt.rna rounds), and each product is hi.hi + hi.lo + lo.hi,
+// accumulated in float32 (three mma; "split TF32"), which lands at ~0.01 of
+// the gate. Three passes at the dense TF32 rate and the bytes at the memory
+// rate give a bound of ~0.028 ms. What holds the kernel above it is
+// mma.sync itself: on the H100 a TF32 m16n8k8 issues about once per 4 SM
+// clocks, a quarter of the rate that only wgmma reaches, and the kernel's
+// ~9M of them take ~0.15 of its ~0.25 ms (without them it runs in 0.095).
 //
-// Bound on this card: operations. At mamba2-370m's prefill of 16 chunks the
-// useful work is ~4.5 GFLOP (C B^T over the causal half, the W X product
-// and the state product per head) against ~89 MB of inputs and outputs:
-// ~0.07 ms at the float32 rate, ~0.03 ms of memory. This version stays off
-// the tensor cores; a TF32/bf16 mma for the three products is the next
-// step.
+// One launch, two kinds of CTA, 4 warps each:
+//   y CTAs, one per (query tile of 64 rows, group of HG heads, chunk),
+//     heaviest query tiles first. The heads share C B^T, so the CTA first
+//     forms the causal tiles of its G = C B^T rows (key tiles at or below
+//     the diagonal) into shared memory, in the mma accumulators' own order,
+//     then for each head walks the same key tiles: each thread reads back
+//     the G values it wrote, makes the weights G exp(cum_q - cum_s) dt_s
+//     (selected to 0 above the diagonal: the exponent overflows there, and
+//     inf * 0 would be NaN) and feeds them straight to W X as A fragments.
+//     The accumulator holds columns 2t, 2t + 1 where an A fragment wants
+//     t, t + 4; the sum over keys does not care which slot a key sits in,
+//     so the B fragment of X takes the same order (keys 2t and 2t + 1) and
+//     nothing moves between lanes. A warp owns 16 query rows. The launch
+//     plan (kernel.py) picks HG so that the grid fills the card at one
+//     chunk (HG = 1: 4 x 32 = 128 CTAs) as at 16 (HG = 4).
+//   state CTAs, one per (64 x 128 block of the state, head, chunk), sum
+//     (X_q gate_q) outer B_q over the chunk in slices of 16 rows; a warp
+//     owns 32 x 64 of the block.
+// Every CTA stages its operands with cp.async into a ring of shared memory
+// (two stages for a y CTA, four for a state CTA, which holds no G; 16-byte
+// copies where rows allow, else 4-byte ones; rows and columns past the
+// tensor are zero-filled), so the next step's copy is in flight while the
+// tensor cores run on the current one. Fragments are read at padded
+// strides that keep the 32 lanes on distinct banks. Each mma3 runs its
+// three passes over all of a fragment's independent tiles, so that no mma
+// waits for the one before it.
+//
+// The library is built with --fmad=false: the split's residual x - hi and
+// the weights' products are rounded on their own, as the plain version's
+// are. The weights use expf and __fmul_rn in the plain version's order.
 #include <cuda_runtime.h>
 
 #include <cmath>
+#include <cstdint>
 
 namespace {
 
-constexpr int kTile = 64;       // rows and columns of a G tile
-constexpr int kThreads = 256;   // 16 x 16; a thread owns rows ty + 16 i
+constexpr int kTile = 64;      // query rows of a y CTA; rows of a key tile
+constexpr int kWarps = 4;      // a y warp owns 16 query rows
+constexpr int kThreads = 32 * kWarps;
+constexpr int kSlice = 32;     // d_state columns of C and B per G stage
+constexpr int kStages = 2;     // the ring of staged operands
 constexpr int kMaxP = 128;
 constexpr int kMaxN = 256;
-constexpr int kStateP = 64;     // ssd_state block: P rows ...
-constexpr int kStateN = 128;    // ... by N columns
-constexpr int kStateThreads = 128;  // 8 x 16; a thread owns 8 x 8
-constexpr int kStateQ = 32;     // chunk rows per ssd_state tile
-constexpr int kMaxSmem = 232448;  // bytes a Hopper block may use
+constexpr int kStateP = 64;    // a state CTA's block: P rows ...
+constexpr int kStateN = 128;   // ... by N columns
+constexpr int kStateQ = 16;    // chunk rows per state stage
+constexpr int kStateStages = 4;  // the state CTAs' ring: they hold no G
+constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may use
 
-size_t scores_smem_bytes(int N) {
-  return sizeof(float) * 2 * kTile * (N + 1);
+__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ constexpr int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
 }
 
-size_t y_smem_bytes(int P) {
-  return sizeof(float) * (kTile * (P + 1) + kTile * (kTile + 1));
+// Shared memory of a CTA, in floats. A y CTA: the G tiles of one query
+// tile (in the accumulators' order), then kStages stages, each the larger
+// of a G stage (C and B slices) and a W X stage (X rows of a key tile, cum
+// and dt). A state CTA: kStateStages stages of X and B slices, cum, dt and
+// the gate, from the start. Strides are padded so that fragment reads fall
+// on distinct banks.
+struct Layout {
+  int ldx;       // X rows of a W X stage: P rounded to 8, plus 4
+  int stage;     // floats per y stage
+  int g_floats;  // G tiles: ceil(Q / 64) of 64 x 64
+  int bytes;
+};
+
+constexpr int kLdG = kSlice + 4;   // C and B slice rows (G stage)
+constexpr int kLdSX = kStateP + 8;  // X slice rows (state stage)
+constexpr int kLdSB = kStateN + 8;  // B slice rows (state stage)
+constexpr int kSStage = kStateQ * (kLdSX + kLdSB) + 3 * kStateQ;
+
+__host__ __device__ inline Layout make_layout(int Q, int P) {
+  Layout L;
+  L.ldx = round_up(P, 8) + 4;
+  const int g_stage = 2 * kTile * kLdG;
+  const int x_stage = kTile * L.ldx + 2 * kTile;
+  L.stage = round_up(imax(g_stage, x_stage), 4);
+  L.g_floats = (Q + kTile - 1) / kTile * kTile * kTile;
+  L.bytes = 4 * imax(L.g_floats + kStages * L.stage, kStateStages * kSStage);
+  return L;
 }
 
-__global__ void __launch_bounds__(kThreads)
-ssd_scores_kernel(const float* __restrict__ bm, const float* __restrict__ cm,
-                  float* __restrict__ g, int Q, int N) {
-  const int qt = blockIdx.x, st = blockIdx.y;
-  if (st > qt) return;  // above the diagonal: never read
-  const size_t row0 = static_cast<size_t>(blockIdx.z) * Q;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int q0 = qt * kTile, s0 = st * kTile;
-  const int ldn = N + 1;  // padded rows: column reads hit distinct banks
-  extern __shared__ float smem[];
-  float* sc = smem;              // [kTile][ldn] C rows
-  float* sb = sc + kTile * ldn;  // [kTile][ldn] B rows
-  for (int i = threadIdx.x; i < kTile * N; i += kThreads) {
-    const int r = i / N, n = i % N;
-    sc[r * ldn + n] = q0 + r < Q ? cm[(row0 + q0 + r) * N + n] : 0.f;
-    sb[r * ldn + n] = s0 + r < Q ? bm[(row0 + s0 + r) * N + n] : 0.f;
-  }
-  __syncthreads();
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int n = 0; n < N; ++n) {
-    float cv[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) cv[i] = sc[(ty + 16 * i) * ldn + n];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = sb[(tx + 16 * j) * ldn + n];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        acc[i][j] = __fmaf_rn(cv[i], bv[j], acc[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int q = q0 + ty + 16 * i;
-    if (q >= Q) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int s = s0 + tx + 16 * j;
-      if (s < Q) g[(row0 + q) * Q + s] = acc[i][j];
+struct Args {
+  const float* x;
+  const float* b;
+  const float* c;
+  const float* dt;
+  const float* cum;
+  float* y;
+  float* states;
+  int BC, Q, H, P, N;
+  int HG;          // heads per y CTA
+  int n_qt, n_hg;  // query tiles, head groups
+  int n_y;         // y CTAs; the state CTAs follow
+  int n_pb, n_nb;  // state blocks per head along P and N
+  int vec_x, vec_bc;  // rows of x (of b and c) allow 16-byte copies
+  Layout L;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of 16 or 4 bytes; `ok` false zero-fills the destination (`src`
+// must still be a valid address).
+__device__ __forceinline__ void cp16(uint32_t dst, const float* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp4(uint32_t dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Until at most `pending` of this thread's cp.async groups are in flight.
+template <int pending>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
+}
+
+// rows x cols floats of a row-major source (row r at src + r * ld_src) into
+// shared memory at dst (row stride ld_dst floats), across the CTA; elements
+// at rows >= n_rows or columns >= n_cols are zero-filled. `vec`: 16-byte
+// copies (cols, ld_src and n_cols multiples of 4, src 16-byte aligned).
+__device__ __forceinline__ void stage_tile(uint32_t dst, int ld_dst,
+                                           const float* src, size_t ld_src,
+                                           int rows, int cols, int n_rows,
+                                           int n_cols, bool vec) {
+  if (vec) {
+    const int c4 = cols / 4;
+    for (int i = threadIdx.x; i < rows * c4; i += kThreads) {
+      const int r = i / c4, c = (i - r * c4) * 4;
+      const bool ok = r < n_rows && c < n_cols;
+      cp16(dst + 4 * (r * ld_dst + c), ok ? src + r * ld_src + c : src, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * cols; i += kThreads) {
+      const int r = i / cols, c = i - r * cols;
+      const bool ok = r < n_rows && c < n_cols;
+      cp4(dst + 4 * (r * ld_dst + c), ok ? src + r * ld_src + c : src, ok);
     }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-ssd_y_kernel(const float* __restrict__ x, const float* __restrict__ g,
-             const float* __restrict__ dt, const float* __restrict__ cum,
-             float* __restrict__ y, int Q, int H, int P) {
-  const int qt = blockIdx.x;
-  const int h = blockIdx.y;
-  const size_t row0 = static_cast<size_t>(blockIdx.z) * Q;  // chunk's rows
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
+// `rows` floats of a strided column (element r at src + r * ld_src).
+__device__ __forceinline__ void stage_col(uint32_t dst, const float* src,
+                                          int ld_src, int rows, int n_rows) {
+  const int r = threadIdx.x;
+  if (r < rows) {
+    const bool ok = r < n_rows;
+    cp4(dst + 4 * r, ok ? src + static_cast<size_t>(r) * ld_src : src, ok);
+  }
+}
+
+// x = hi + lo, both rounded to TF32 (round to nearest, ties away); the
+// residual x - hi is exact in float32. The rounding is cvt.rna.tf32.f32's,
+// bit for bit on finite values, in two integer operations: cvt itself cost
+// the kernel 14% (0.288 against 0.247 ms at 16 chunks on the H100).
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+// d += a b on one m16n8k8 TF32 tile, float32 accumulators. Not volatile:
+// the compiler may interleave the mma of independent tiles.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The split-TF32 product of one A fragment with n B fragments into n
+// accumulators: the two correction terms, then hi.hi, each pass over all
+// n tiles, so that no mma waits on the one before it. Tiles at or past
+// `live` are skipped.
+template <int n>
+__device__ __forceinline__ void mma3(float (&d)[n][4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4],
+                                     const uint32_t (&bh)[n][2],
+                                     const uint32_t (&bl)[n][2], int live) {
+#pragma unroll
+  for (int i = 0; i < n; ++i)
+    if (i < live) mma(d[i], al, bh[i]);
+#pragma unroll
+  for (int i = 0; i < n; ++i)
+    if (i < live) mma(d[i], ah, bl[i]);
+#pragma unroll
+  for (int i = 0; i < n; ++i)
+    if (i < live) mma(d[i], ah, bh[i]);
+}
+
+__device__ __forceinline__ void split4(const float (&v)[4], uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split(v[i], hi[i], lo[i]);
+}
+__device__ __forceinline__ void split2(float v0, float v1, uint32_t (&hi)[2],
+                                       uint32_t (&lo)[2]) {
+  split(v0, hi[0], lo[0]);
+  split(v1, hi[1], lo[1]);
+}
+
+// One weight of W: (C_q . B_s) exp(cum_q - cum_s) dt_s where s <= q < Q,
+// else 0, selected (never a multiply by a mask). Above the diagonal expf
+// takes 0 instead of the exponent, so nothing overflows and no lane
+// branches.
+__device__ __forceinline__ float weight(float g, float cq, float cs, float ds,
+                                        bool live) {
+  const float e = expf(live ? cq - cs : 0.f);
+  return live ? __fmul_rn(__fmul_rn(g, e), ds) : 0.f;
+}
+
+// ---------------------------------------------------------------- y CTAs
+// NP: n8 blocks of P a thread accumulates (P <= 8 NP).
+template <int NP>
+__device__ void y_block(const Args& a, float* smem) {
+  const int per_qt = a.BC * a.n_hg;
+  const int qt = a.n_qt - 1 - static_cast<int>(blockIdx.x) / per_qt;
+  const int rem = static_cast<int>(blockIdx.x) % per_qt;
+  const int hg = rem % a.n_hg, chunk = rem / a.n_hg;
+  const int Q = a.Q, H = a.H, P = a.P, N = a.N;
+  const int h0 = hg * a.HG, n_heads = min(a.HG, H - h0);
+  const size_t row0 = static_cast<size_t>(chunk) * Q;
   const int q0 = qt * kTile;
-  const int q_last = min(Q, q0 + kTile) - 1;
-  const int ldp = P + 1;
-  constexpr int ldw = kTile + 1;
+  const int n_keys = qt + 1;  // key tiles at or below the diagonal
+  const int n_slices = (N + kSlice - 1) / kSlice;
+  const int n_g = n_keys * n_slices;  // steps of C B^T; then W X steps
+  const int n_steps = n_g + n_heads * n_keys;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r_lo = warp * 16 + g;  // the thread's tile rows: r_lo, r_lo + 8
+  const int ldx = a.L.ldx;
+  const int p8 = round_up(P, 8);
+  const int n_pb = p8 / 8;  // n8 blocks of P that hold columns
+  float4* gs = reinterpret_cast<float4*>(smem);
+  float* ring = smem + a.L.g_floats;
 
-  extern __shared__ float smem[];
-  float* sx = smem;               // [kTile][ldp] X rows of the key tile
-  float* sw = sx + kTile * ldp;   // [kTile][ldw] weights
-  __shared__ float cum_q[kTile], cum_s[kTile], dt_s[kTile];
-
-  if (threadIdx.x < kTile) {
-    const int q = q0 + threadIdx.x;
-    cum_q[threadIdx.x] = q < Q ? cum[(row0 + q) * H + h] : 0.f;
-  }
-
-  float acc[4][kMaxP / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kMaxP / 16; ++j) acc[i][j] = 0.f;
-
-  for (int s0 = 0; s0 <= q_last; s0 += kTile) {
-    __syncthreads();  // the previous tile's sx / sw are read
-    for (int i = threadIdx.x; i < kTile * P; i += kThreads) {
-      const int r = i / P, p = i % P;
-      sx[r * ldp + p] =
-          s0 + r < Q ? x[((row0 + s0 + r) * H + h) * P + p] : 0.f;
+  auto load = [&](int i) {
+    const uint32_t d = smem_addr(ring + (i % kStages) * a.L.stage);
+    if (i < n_g) {
+      const int s0 = (i / n_slices) * kTile, k0 = (i % n_slices) * kSlice;
+      stage_tile(d, kLdG, a.c + (row0 + q0) * N + k0, N, kTile, kSlice,
+                 Q - q0, N - k0, a.vec_bc);
+      stage_tile(d + 4 * kTile * kLdG, kLdG, a.b + (row0 + s0) * N + k0, N,
+                 kTile, kSlice, Q - s0, N - k0, a.vec_bc);
+    } else {
+      const int j = i - n_g;
+      const int h = h0 + j / n_keys, s0 = (j % n_keys) * kTile;
+      stage_tile(d, ldx, a.x + ((row0 + s0) * H + h) * P,
+                 static_cast<size_t>(H) * P, kTile, p8, Q - s0, P, a.vec_x);
+      stage_col(d + 4 * kTile * ldx, a.cum + (row0 + s0) * H + h, H, kTile,
+                Q - s0);
+      stage_col(d + 4 * (kTile * ldx + kTile), a.dt + (row0 + s0) * H + h, H,
+                kTile, Q - s0);
     }
-    if (threadIdx.x < kTile) {
-      const int s = s0 + threadIdx.x;
-      cum_s[threadIdx.x] = s < Q ? cum[(row0 + s) * H + h] : 0.f;
-      dt_s[threadIdx.x] = s < Q ? dt[(row0 + s) * H + h] : 0.f;
-    }
+    cp_commit();
+  };
+
+  float gacc[8][4];
+  float yacc[NP][4];
+  float cq[2] = {0.f, 0.f};  // cum of the rows q0 + r_lo (+ 8), this head
+  const int qa = q0 + r_lo, qb = qa + 8;
+
+  load(0);
+  for (int i = 0; i < n_steps; ++i) {
+    if (i + 1 < n_steps)
+      load(i + 1);
+    else
+      cp_commit();
+    cp_wait<kStages - 1>();
     __syncthreads();
-    // weights of rows ty + 16 i, columns tx + 16 j; G rows are read
-    // coalesced across tx
+    const float* st = ring + (i % kStages) * a.L.stage;
+    if (i < n_g) {
+      // G tile (the warp's 16 query rows x 64 keys) += C B^T over a slice
+      const int kt = i / n_slices, ks = i % n_slices;
+      if (ks == 0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+        for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int rq = ty + 16 * i, rs = tx + 16 * j;
-        const int q = q0 + rq, s = s0 + rs;
-        // select, never multiply by a mask: above the diagonal the
-        // exponent is positive and overflows
-        sw[rq * ldw + rs] =
-            (s <= q && q < Q)
-                ? __fmul_rn(__fmul_rn(g[(row0 + q) * Q + s],
-                                      expf(cum_q[rq] - cum_s[rs])),
-                            dt_s[rs])
-                : 0.f;
+          for (int e = 0; e < 4; ++e) gacc[j][e] = 0.f;
       }
-    }
-    __syncthreads();
-
-    // y += W X over the tile's keys
-    for (int s = 0; s < kTile; ++s) {
-      float wv[4];
+      const float* cs = st;
+      const float* bs = st + kTile * kLdG;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) wv[i] = sw[(ty + 16 * i) * ldw + s];
+      for (int kk = 0; kk < kSlice; kk += 8) {
+        const float av[4] = {cs[r_lo * kLdG + kk + t],
+                             cs[(r_lo + 8) * kLdG + kk + t],
+                             cs[r_lo * kLdG + kk + t + 4],
+                             cs[(r_lo + 8) * kLdG + kk + t + 4]};
+        uint32_t ah[4], al[4], bh[8][2], bl[8][2];
+        split4(av, ah, al);
 #pragma unroll
-      for (int j = 0; j < kMaxP / 16; ++j) {
-        const int p = tx + 16 * j;
-        if (p < P) {
-          const float xv = sx[s * ldp + p];
+        for (int j = 0; j < 8; ++j)
+          split2(bs[(8 * j + g) * kLdG + kk + t],
+                 bs[(8 * j + g) * kLdG + kk + t + 4], bh[j], bl[j]);
+        mma3<8>(gacc, ah, al, bh, bl, 8);
+      }
+      if (ks == n_slices - 1) {
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
-            acc[i][j] = __fmaf_rn(wv[i], xv, acc[i][j]);
+        for (int j = 0; j < 8; ++j)
+          gs[((kt * kWarps + warp) * 8 + j) * 32 + lane] =
+              make_float4(gacc[j][0], gacc[j][1], gacc[j][2], gacc[j][3]);
+      }
+    } else {
+      // y (the warp's 16 rows x P) += W X over one key tile of one head
+      const int jj = i - n_g, kt = jj % n_keys;
+      const int h = h0 + jj / n_keys;
+      if (kt == 0) {
+#pragma unroll
+        for (int np = 0; np < NP; ++np)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) yacc[np][e] = 0.f;
+        cq[0] = qa < Q ? __ldg(a.cum + (row0 + qa) * H + h) : 0.f;
+        cq[1] = qb < Q ? __ldg(a.cum + (row0 + qb) * H + h) : 0.f;
+      }
+      const float* xs = st;
+      const float* cum_s = st + kTile * ldx;
+      const float* dt_s = cum_s + kTile;
+      const int s0 = kt * kTile;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (kt == qt && 8 * j > warp * 16 + 15) break;  // all above the
+                                                         // diagonal
+        // this thread's G: rows qa, qb x keys c, c + 1 of the tile
+        const float4 gv = gs[((kt * kWarps + warp) * 8 + j) * 32 + lane];
+        const int c = 8 * j + 2 * t;
+        const int sa = s0 + c, sb = sa + 1;
+        const float ca = cum_s[c], cb = cum_s[c + 1];
+        const float da = dt_s[c], db = dt_s[c + 1];
+        // A fragment: (row g, slot t) = key c, (row g, slot t + 4) = c + 1
+        const float wv[4] = {
+            weight(gv.x, cq[0], ca, da, sa <= qa && qa < Q),
+            weight(gv.z, cq[1], ca, da, sa <= qb && qb < Q),
+            weight(gv.y, cq[0], cb, db, sb <= qa && qa < Q),
+            weight(gv.w, cq[1], cb, db, sb <= qb && qb < Q)};
+        uint32_t ah[4], al[4], bh[NP][2], bl[NP][2];
+        split4(wv, ah, al);
+#pragma unroll
+        for (int np = 0; np < NP; ++np)
+          if (np < n_pb)
+            split2(xs[c * ldx + np * 8 + g], xs[(c + 1) * ldx + np * 8 + g],
+                   bh[np], bl[np]);
+        mma3<NP>(yacc, ah, al, bh, bl, n_pb);
+      }
+      if (kt == n_keys - 1) {
+#pragma unroll
+        for (int np = 0; np < NP; ++np) {
+          const int p = np * 8 + 2 * t;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int q = half ? qb : qa;
+            if (q >= Q) continue;
+            float* out = a.y + ((row0 + q) * H + h) * P;
+            if (p < P) out[p] = yacc[np][2 * half];
+            if (p + 1 < P) out[p + 1] = yacc[np][2 * half + 1];
+          }
         }
       }
     }
+    __syncthreads();  // the stage is read before the next load refills it
+  }
+}
+
+// ------------------------------------------------------------ state CTAs
+__device__ void state_block(const Args& a, float* smem) {
+  const int i_blk = static_cast<int>(blockIdx.x) - a.n_y;
+  const int per_head = a.n_pb * a.n_nb;
+  const int blk = i_blk % per_head, hc = i_blk / per_head;
+  const int Q = a.Q, H = a.H, P = a.P, N = a.N;
+  const int h = hc % H, chunk = hc / H;
+  const int p0 = (blk % a.n_pb) * kStateP, n0 = (blk / a.n_pb) * kStateN;
+  const size_t row0 = static_cast<size_t>(chunk) * Q;
+  const float total = __ldg(a.cum + (row0 + Q - 1) * H + h);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int pw = (warp % 2) * 32, nw = (warp / 2) * 64;  // the warp's block
+  const int n_steps = (Q + kStateQ - 1) / kStateQ;
+
+  auto load = [&](int i) {
+    const uint32_t d = smem_addr(smem + (i % kStateStages) * kSStage);
+    const int qs = i * kStateQ;
+    stage_tile(d, kLdSX, a.x + ((row0 + qs) * H + h) * P + p0,
+               static_cast<size_t>(H) * P, kStateQ, kStateP, Q - qs, P - p0,
+               a.vec_x);
+    const uint32_t db = d + 4 * kStateQ * kLdSX;
+    stage_tile(db, kLdSB, a.b + (row0 + qs) * N + n0, N, kStateQ, kStateN,
+               Q - qs, N - n0, a.vec_bc);
+    const uint32_t dc = db + 4 * kStateQ * kLdSB;
+    stage_col(dc, a.cum + (row0 + qs) * H + h, H, kStateQ, Q - qs);
+    stage_col(dc + 4 * kStateQ, a.dt + (row0 + qs) * H + h, H, kStateQ,
+              Q - qs);
+    cp_commit();
+  };
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+  // kStateStages - 1 slices in flight ahead of the one in use
+  for (int i = 0; i < kStateStages - 1; ++i) {
+    if (i < n_steps)
+      load(i);
+    else
+      cp_commit();
+  }
+  for (int i = 0; i < n_steps; ++i) {
+    if (i + kStateStages - 1 < n_steps)
+      load(i + kStateStages - 1);
+    else
+      cp_commit();
+    cp_wait<kStateStages - 1>();
+    __syncthreads();
+    float* st = smem + (i % kStateStages) * kSStage;
+    const float* xs = st;
+    const float* bs = xs + kStateQ * kLdSX;
+    const float* cum_s = bs + kStateQ * kLdSB;
+    const float* dt_s = cum_s + kStateQ;
+    float* gate = st + kStateQ * (kLdSX + kLdSB) + 2 * kStateQ;
+    if (threadIdx.x < kStateQ) {
+      const int r = threadIdx.x;
+      gate[r] = i * kStateQ + r < Q
+                    ? __fmul_rn(expf(total - cum_s[r]), dt_s[r])
+                    : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kStateQ; k += 8) {
+      // A = (X gate)^T: rows p, columns (the sum's index) q
+      const float ga = gate[k + t], gb = gate[k + t + 4];
+      uint32_t ah[2][4], al[2][4], bh[8][2], bl[8][2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const int pr = pw + mi * 16 + g;
+        const float av[4] = {__fmul_rn(xs[(k + t) * kLdSX + pr], ga),
+                             __fmul_rn(xs[(k + t) * kLdSX + pr + 8], ga),
+                             __fmul_rn(xs[(k + t + 4) * kLdSX + pr], gb),
+                             __fmul_rn(xs[(k + t + 4) * kLdSX + pr + 8], gb)};
+        split4(av, ah[mi], al[mi]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni) {
+        const int nc = nw + ni * 8 + g;
+        split2(bs[(k + t) * kLdSB + nc], bs[(k + t + 4) * kLdSB + nc], bh[ni],
+               bl[ni]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        mma3<8>(acc[mi], ah[mi], al[mi], bh, bl, 8);
+    }
+    __syncthreads();
   }
 
+  float* out = a.states + (static_cast<size_t>(chunk) * H + h) * P * N;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int q = q0 + ty + 16 * i;
-    if (q >= Q) continue;
+  for (int mi = 0; mi < 2; ++mi) {
 #pragma unroll
-    for (int j = 0; j < kMaxP / 16; ++j) {
-      const int p = tx + 16 * j;
-      if (p < P) y[((row0 + q) * H + h) * P + p] = acc[i][j];
+    for (int half = 0; half < 2; ++half) {
+      const int p = p0 + pw + mi * 16 + g + 8 * half;
+      if (p >= P) continue;
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni) {
+        const int n = n0 + nw + ni * 8 + 2 * t;
+        if (n < N) out[static_cast<size_t>(p) * N + n] = acc[mi][ni][2 * half];
+        if (n + 1 < N)
+          out[static_cast<size_t>(p) * N + n + 1] = acc[mi][ni][2 * half + 1];
+      }
     }
   }
 }
 
-__global__ void __launch_bounds__(kStateThreads)
-ssd_state_kernel(const float* __restrict__ x, const float* __restrict__ bm,
-                 const float* __restrict__ dt, const float* __restrict__ cum,
-                 float* __restrict__ states, int Q, int H, int P, int N) {
-  const int n_pblocks = (P + kStateP - 1) / kStateP;
-  const int p0 = (blockIdx.x % n_pblocks) * kStateP;
-  const int n0 = (blockIdx.x / n_pblocks) * kStateN;
-  const int h = blockIdx.y;
-  const int chunk = blockIdx.z;
-  const size_t row0 = static_cast<size_t>(chunk) * Q;
-  const int tx = threadIdx.x % 16;  // columns n0 + tx + 16 j
-  const int ty = threadIdx.x / 16;  // rows p0 + ty + 8 i
-  __shared__ float sx[kStateQ][kStateP + 1];  // X * exp(total - cum) * dt
-  __shared__ float sb[kStateQ][kStateN + 1];
-  __shared__ float sgate[kStateQ];
-  const float total = cum[(row0 + Q - 1) * H + h];
+template <int NP>
+__global__ void __launch_bounds__(kThreads) ssd_scan_kernel(const Args a) {
+  extern __shared__ __align__(16) float smem[];
+  if (static_cast<int>(blockIdx.x) < a.n_y)
+    y_block<NP>(a, smem);
+  else
+    state_block(a, smem);
+}
 
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int q0 = 0; q0 < Q; q0 += kStateQ) {
-    __syncthreads();
-    if (threadIdx.x < kStateQ) {
-      const int q = q0 + threadIdx.x;
-      sgate[threadIdx.x] =
-          q < Q ? __fmul_rn(expf(total - cum[(row0 + q) * H + h]),
-                            dt[(row0 + q) * H + h])
-                : 0.f;
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < kStateQ * kStateP; i += kStateThreads) {
-      const int r = i / kStateP, pp = i % kStateP;
-      const int q = q0 + r, p = p0 + pp;
-      sx[r][pp] = (q < Q && p < P)
-                      ? __fmul_rn(x[((row0 + q) * H + h) * P + p], sgate[r])
-                      : 0.f;
-    }
-    for (int i = threadIdx.x; i < kStateQ * kStateN; i += kStateThreads) {
-      const int r = i / kStateN, nn = i % kStateN;
-      const int q = q0 + r, n = n0 + nn;
-      sb[r][nn] = (q < Q && n < N) ? bm[(row0 + q) * N + n] : 0.f;
-    }
-    __syncthreads();
-    for (int r = 0; r < kStateQ; ++r) {
-      float xv[8], bv[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) xv[i] = sx[r][ty + 8 * i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) bv[j] = sb[r][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          acc[i][j] = __fmaf_rn(xv[i], bv[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int p = p0 + ty + 8 * i;
-    if (p >= P) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n < N)
-        states[((static_cast<size_t>(chunk) * H + h) * P + p) * N + n] =
-            acc[i][j];
-    }
-  }
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace
@@ -282,48 +530,51 @@ extern "C" const char* error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 
-// Scratch g: (BC, Q, Q) float32, C B^T of every chunk (the tiles on and
-// below the diagonal are written). Both outputs are written in full; P <=
-// 128, N <= 256.
+// The dynamic shared memory of a CTA as make_layout lays it out, for the
+// launch plan in kernel.py to be held against.
+extern "C" int ssd_scan_smem(int Q, int P) { return make_layout(Q, P).bytes; }
+
+// One launch: y CTAs (query tile, group of HG heads, chunk), then state
+// CTAs (block of the state, head, chunk). Both outputs are written in full;
+// P <= 128, N <= 256, 1 <= HG <= H.
 extern "C" int ssd_scan_launch(const void* x, const void* b, const void* c,
                                const void* dt, const void* cum, void* y,
-                               void* states, void* g, int BC, int Q, int H,
-                               int P, int N, int device, void* stream) {
+                               void* states, int BC, int Q, int H, int P,
+                               int N, int HG, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (BC <= 0 || Q <= 0 || H <= 0 || P <= 0 || P > kMaxP || N <= 0 ||
-      N > kMaxN || H > 65535 || BC > 65535)
+      N > kMaxN || HG < 1 || HG > H)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem_g = scores_smem_bytes(N), smem_y = y_smem_bytes(P);
-  if (smem_g > static_cast<size_t>(kMaxSmem) ||
-      smem_y > static_cast<size_t>(kMaxSmem))
+  const Layout L = make_layout(Q, P);
+  if (L.bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  Args a{static_cast<const float*>(x), static_cast<const float*>(b),
+         static_cast<const float*>(c), static_cast<const float*>(dt),
+         static_cast<const float*>(cum), static_cast<float*>(y),
+         static_cast<float*>(states), BC, Q, H, P, N, HG,
+         (Q + kTile - 1) / kTile, (H + HG - 1) / HG, 0,
+         (P + kStateP - 1) / kStateP, (N + kStateN - 1) / kStateN,
+         P % 4 == 0 && aligned16(x), N % 4 == 0 && aligned16(b) &&
+             aligned16(c), L};
+  const long long n_y = static_cast<long long>(BC) * a.n_qt * a.n_hg;
+  const long long n_blocks =
+      n_y + static_cast<long long>(BC) * H * a.n_pb * a.n_nb;
+  if (n_blocks > (1LL << 31) - 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  err = cudaFuncSetAttribute(ssd_scores_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem_g));
+  a.n_y = static_cast<int>(n_y);
+  const int np = (P + 7) / 8;
+  void* fn = np <= 1   ? reinterpret_cast<void*>(&ssd_scan_kernel<1>)
+             : np <= 2 ? reinterpret_cast<void*>(&ssd_scan_kernel<2>)
+             : np <= 4 ? reinterpret_cast<void*>(&ssd_scan_kernel<4>)
+             : np <= 8 ? reinterpret_cast<void*>(&ssd_scan_kernel<8>)
+                       : reinterpret_cast<void*>(&ssd_scan_kernel<16>);
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             L.bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(ssd_y_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem_y));
+  void* params[] = {&a};
+  err = cudaLaunchKernel(fn, dim3(static_cast<unsigned>(n_blocks)),
+                         dim3(kThreads), params, static_cast<size_t>(L.bytes),
+                         static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* xf = static_cast<const float*>(x);
-  const float* bf = static_cast<const float*>(b);
-  const float* dtf = static_cast<const float*>(dt);
-  const float* cumf = static_cast<const float*>(cum);
-  float* gf = static_cast<float*>(g);
-  const int n_tiles = (Q + kTile - 1) / kTile;
-  ssd_scores_kernel<<<dim3(n_tiles, n_tiles, BC), kThreads, smem_g, st>>>(
-      bf, static_cast<const float*>(c), gf, Q, N);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_y_kernel<<<dim3(n_tiles, H, BC), kThreads, smem_y, st>>>(
-      xf, gf, dtf, cumf, static_cast<float*>(y), Q, H, P);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_blocks = ((P + kStateP - 1) / kStateP) *
-                       ((N + kStateN - 1) / kStateN);
-  ssd_state_kernel<<<dim3(n_blocks, H, BC), kStateThreads, 0, st>>>(
-      xf, bf, dtf, cumf, static_cast<float*>(states), Q, H, P, N);
   return static_cast<int>(cudaGetLastError());
 }

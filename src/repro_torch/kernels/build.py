@@ -11,12 +11,13 @@ with a plain C interface (no PyTorch headers, so a build takes seconds):
 The flags differ by source (``nvcc_flags``). ``--fmad=false`` is part of
 the bit contract of ``cell_update``, ``hist_accum`` and ``rglru_scan``:
 their plain PyTorch versions round every multiply and add on its own,
-and a contracted ``a*b+c`` would not. ``ssd_scan`` writes its products
-as explicit ``__fmaf_rn`` and keeps the flag as it was built with. The
+and a contracted ``a*b+c`` would not. ``ssd_scan`` keeps it so that the
+residual of its split-TF32 operands (``x - hi``) and its weights'
+products are rounded on their own, as its plain version's are. The
 attention kernels, held to their plain versions by a bf16 tolerance,
 are built without it, so nvcc contracts their softmax arithmetic.
-``flash_attention`` links libcuda (``-lcuda``) for
-``cuTensorMapEncodeTiled``, which encodes its TMA tensor maps. The
+``flash_attention`` and ``rglru_scan`` link libcuda (``-lcuda``) for
+``cuTensorMapEncodeTiled``, which encodes their TMA tensor maps. The
 libraries land in ``repro_torch/build/`` (git-ignored), named by a
 digest of the sources and each one's own flags, so an edited source or
 a changed flag rebuilds and an unchanged one loads as built.
@@ -42,10 +43,11 @@ SOURCES = ("hist_sketch", "cell_update", "flash_attention",
            "decode_attention", "ssd_scan", "rglru_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# held bit for bit (or, ssd_scan, product by product) to their plain versions
+# held bit for bit to their plain versions (ssd_scan: its split's residual
+# and its weights rounded on their own)
 NO_FMAD = ("hist_sketch", "cell_update", "ssd_scan", "rglru_scan")
 # call libcuda itself (cuTensorMapEncodeTiled)
-LINK_LIBCUDA = ("flash_attention",)
+LINK_LIBCUDA = ("flash_attention", "rglru_scan")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -284,20 +284,34 @@ def test_decode_attention_kernel_splits(cuda_device, case):
         _assert_attention_close(got, want)
 
 
-@pytest.mark.parametrize("op", ["flash_attention", "decode_attention"])
-def test_attention_kernels_launch_once_per_call(cuda_device, op):
+@pytest.mark.parametrize("op", ["flash_attention", "decode_attention",
+                                "ssd_scan", "rglru_scan"])
+def test_kernels_launch_once_per_call(cuda_device, op):
     """The profiler sees one device kernel per call, and it is the
-    kernel's own."""
+    kernel's own (the recurrent kernels at their served shapes too)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rglru_scan import ops as scan_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     rng = np.random.default_rng(5)
     if op == "flash_attention":
         q, k, v = (_bf16(rng, (1, 300, n, 256), cuda_device) for n in (8, 4, 4))
 
         def call():
             return fa_ops.flash_attention(q, k, v, softcap=50.0, kernel="on")
+    elif op == "ssd_scan":
+        args = _ssd_args(rng, 1, 1, 256, 32, 64, 128, cuda_device, valid=16)
+
+        def call():
+            return ssd_ops.ssd_intra_chunk(*args, kernel="on")
+    elif op == "rglru_scan":
+        a, b = (torch.from_numpy(rng.random((1, 16, 4096), dtype=np.float32))
+                .to(cuda_device) for _ in range(2))
+
+        def call():
+            return scan_ops.linear_scan(a, b, kernel="on")
     else:
         q = _bf16(rng, (1, 1, 8, 256), cuda_device)
         k, v = (_bf16(rng, (1, 4672, 4, 256), cuda_device) for _ in range(2))
@@ -370,6 +384,15 @@ def _ssd_args(rng, b, nc, q, h, p, n, device, valid=None):
     (1, 1, 100, 3, 24, 40, None),    # tile edges in Q, P and N
     (1, 2, 256, 32, 64, 128, None),  # mamba2-370m
     (1, 1, 256, 32, 64, 128, 16),    # a 16-token prompt, padded
+    # edges of the tiles, the slices, the state blocks and the head groups
+    (1, 1, 1, 4, 16, 8, None),       # Q of 1
+    (1, 3, 63, 3, 24, 40, None),     # Q of a tile - 1
+    (1, 2, 65, 5, 64, 128, 20),      # Q of a tile + 1, padded
+    (2, 1, 100, 6, 128, 256, None),  # P and N of two state blocks
+    (1, 1, 256, 32, 128, 256, None),
+    (1, 16, 256, 32, 64, 128, None),  # 16 chunks: four heads a y CTA
+    (2, 8, 256, 4, 64, 128, 16),     # BC of 16, padded chunks
+    (1, 2, 50, 3, 10, 13, None),     # P and N not multiples of 4
 ])
 def test_ssd_scan_kernel_matches_plain(cuda_device, shape):
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
@@ -388,7 +411,12 @@ def test_ssd_scan_kernel_matches_plain(cuda_device, shape):
             float(((g - w).abs() / (SSD_TOL + SSD_TOL * w.abs())).max())
 
 
-@pytest.mark.parametrize("shape", [(1, 300, 4096), (2, 77, 96), (3, 5, 40)])
+@pytest.mark.parametrize("shape", [
+    (1, 300, 4096), (2, 77, 96), (3, 5, 40),
+    # L of 1, of a tile -/+ 1 (the direct kernel up to 64 steps), ragged;
+    # B of 1-3; W of a strip's part
+    (1, 1, 4096), (2, 63, 96), (1, 64, 4096), (3, 65, 40), (1, 2573, 4096),
+    (1, 16, 4096), (2, 129, 4096), (3, 256, 12), (1, 1000, 96)])
 def test_rglru_scan_kernel_bit_equal_plain(cuda_device, shape):
     from repro_torch.kernels.rglru_scan import kernel as scan_kernel
     from repro_torch.kernels.rglru_scan import ops as scan_ops
@@ -402,6 +430,55 @@ def test_rglru_scan_kernel_bit_equal_plain(cuda_device, shape):
     torch.cuda.synchronize()
     assert scan_kernel.linear_scan_cuda.launches == before + 1
     assert torch.equal(got, scan_ops.linear_scan(a, b, kernel="off"))
+
+
+def test_rglru_scan_kernel_bit_equal_plain_near_float32_max(cuda_device):
+    # h settles at b / (1 - a) ~ 1e38, near float32's largest value
+    from repro_torch.kernels.rglru_scan import ops as scan_ops
+    rng = np.random.default_rng(38)
+    shape = (2, 700, 96)
+    a = torch.from_numpy(rng.uniform(0.985, 0.995, shape).astype(
+        np.float32)).to(cuda_device)
+    b = torch.from_numpy(rng.uniform(0.5e36, 1.5e36, shape).astype(
+        np.float32)).to(cuda_device)
+    want = scan_ops.linear_scan(a, b, kernel="off")
+    assert float(want.abs().max()) > 1e38
+    assert torch.equal(scan_ops.linear_scan(a, b, kernel="on"), want)
+
+
+def test_rglru_scan_kernel_takes_unaligned_views_and_rejects_odd_widths(
+        cuda_device):
+    # a view that starts 4 bytes into its storage is copied, not refused;
+    # rows that are not 16-byte multiples cannot go through the TMA
+    from repro_torch.kernels.rglru_scan import kernel as scan_kernel
+    from repro_torch.kernels.rglru_scan import ops as scan_ops
+    rng = np.random.default_rng(4)
+    base = torch.from_numpy(rng.random(1 + 2 * 70 * 96, dtype=np.float32)).to(
+        cuda_device)
+    a = base[1:].view(2, 70, 96)
+    b = torch.from_numpy(rng.standard_normal((2, 70, 96)).astype(
+        np.float32)).to(cuda_device)
+    assert a.data_ptr() % 16 != 0
+    assert torch.equal(scan_ops.linear_scan(a, b, kernel="on"),
+                       scan_ops.linear_scan(a, b, kernel="off"))
+    with pytest.raises(ValueError):
+        scan_kernel.linear_scan_cuda(a[..., :13].contiguous(),
+                                     b[..., :13].contiguous())
+
+
+def test_recurrent_plans_smem_equal_the_library_layouts(cuda_device):
+    # every plan the wrappers can choose: ssd_scan's count depends on Q
+    # and P alone, rglru_scan's on the stages (0: the direct kernel)
+    from repro_torch.kernels.rglru_scan import kernel as scan_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    for q in (1, 63, 64, 65, 100, 128, 200, 256, 257, 512, 640):
+        for p in range(1, ssd_kernel.MAX_P + 1):
+            need = ssd_kernel.smem_bytes(q, p)
+            if need <= ssd_kernel.MAX_SMEM_BYTES:
+                assert ssd_kernel.library_smem_bytes(q, p) == need, (q, p)
+    for stages in range(scan_kernel.MAX_STAGES + 1):
+        assert scan_kernel.library_smem_bytes(stages) == \
+            scan_kernel.smem_bytes(stages), stages
 
 
 @pytest.mark.parametrize("window", [None, 64])

@@ -80,7 +80,7 @@ def test_fmad_off_only_where_bits_are_held(name):
     flags = build.nvcc_flags(name)
     bits = name in ("hist_sketch", "cell_update", "rglru_scan", "ssd_scan")
     assert ("--fmad=false" in flags) == bits
-    assert ("-lcuda" in flags) == (name == "flash_attention")
+    assert ("-lcuda" in flags) == (name in ("flash_attention", "rglru_scan"))
     assert "arch=compute_90a,code=sm_90a" in flags
 
 

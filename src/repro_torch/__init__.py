@@ -6,10 +6,15 @@ NVIDIA H100 through hand-written CUDA kernels:
   * the sweep engine (``core.queueing.run``) and threshold estimators
     (``core.threshold``), through ``kernels.cell_update`` and
     ``kernels.hist_sketch``;
-  * hedged LM serving of gemma2-2b (``launch.serve``: ``serving.engine``
-    replicas behind ``serving.scheduler``, the model in ``models``),
-    through ``kernels.flash_attention`` (prefill) and
-    ``kernels.decode_attention`` (decode).
+  * hedged LM serving of gemma2-2b, mamba2-370m and recurrentgemma-9b
+    (``launch.serve``: ``serving.engine`` replicas behind
+    ``serving.scheduler``, the model in ``models``), through
+    ``kernels.flash_attention`` (prefill), ``kernels.decode_attention``
+    (decode), ``kernels.ssd_scan`` and ``kernels.rglru_scan``;
+  * the paper's empirical systems (``core.storage_sim``, ``core.dns``,
+    ``core.netsim`` and the TCP model of ``core.analytic``) and its
+    figures (``bench``: ``python -m repro_torch.bench.run``), the engine
+    figures through ``kernels.cell_update``.
 
 It imports torch and numpy only — never JAX, and nothing of ``repro``.
 
@@ -19,6 +24,7 @@ tests do. Asking for CUDA on a machine without it raises.
 """
 from repro_torch import interop  # noqa: F401
 from repro_torch.core import (analytic, cellplan, chunkflow,  # noqa: F401
-                              distributions, queueing, scenario, threshold)
+                              distributions, dns, netsim, queueing, scenario,
+                              storage_sim, threshold)
 from repro_torch.kernels.cell_update import ops as cell_update_ops  # noqa: F401
 from repro_torch.kernels.hist_sketch import ops as hist_sketch_ops  # noqa: F401

@@ -1,2 +1,3 @@
-"""Scenario specs, distributions, the cell plan, the sweep engine and the
-threshold estimators of the PyTorch port."""
+"""Scenario specs, distributions, the cell plan, the sweep engine, the
+threshold estimators and the paper's empirical systems (storage, DNS,
+the fat-tree packet simulator, the TCP model) of the PyTorch port."""

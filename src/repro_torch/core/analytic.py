@@ -1,5 +1,5 @@
-"""Closed-form results from the paper (the port's copy of the closed forms
-of ``repro.core.analytic``; the §3.1 TCP handshake model is not ported).
+"""Closed-form results from the paper (the port's copy of
+``repro.core.analytic``).
 
 * Theorem 1 (M/M/1 + replication): with unit-mean exponential service and
   per-server arrival rate rho, mean response is 1/(1-rho) unreplicated and
@@ -8,10 +8,17 @@ of ``repro.core.analytic``; the §3.1 TCP handshake model is not ported).
 * The general-k M/M/1 approximation (k-way independent queues).
 * Light-load means for the timed policies (``hedge_mean_light`` /
   ``retry_mean_light``).
+* The §3.1 TCP handshake model (``TCPModel``, ``handshake_times``) and
+  its first-order saving, with the cost benchmark of 16 ms per KB.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+import torch
+
+from repro_torch.device import resolve_device, seeded_generator
 
 THRESHOLD_EXPONENTIAL = 1.0 / 3.0
 # Paper: deterministic-service threshold from queueing-model simulation.
@@ -86,3 +93,64 @@ def exponential_threshold(k: int = 2, overhead: float = 0.0) -> float:
         else:
             hi = mid
     return float(np.round(0.5 * (lo + hi), 6))
+
+
+# ---------------------------------------------------------------------------
+# §3.1 TCP connection establishment
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TCPModel:
+    rtt: float = 0.03           # seconds
+    p_single: float = 0.0048    # measured single-packet loss prob [Chan et al.]
+    p_pair: float = 0.0007      # measured back-to-back pair loss prob
+    syn_timeout: float = 3.0    # Linux initial SYN / SYN-ACK RTO
+    max_retries: int = 8
+
+
+def _completion_from_uniform(u: torch.Tensor, p: float, timeout: float,
+                             rtt: float, max_retries: int) -> torch.Tensor:
+    """Packet completion times (float32) from uniforms ``u`` in [0, 1):
+    retry r (r=0..R) succeeds w.p. (1-p) p^r, and its completion time is
+    sum_{j<r} timeout*2^j + rtt/2. The geometric is inverted as
+    r = floor(log(1-u)/log(p)), clipped, in float32 as the JAX package
+    computes it."""
+    log_p = torch.log(torch.full_like(u, p))
+    r = torch.floor(torch.log1p(-u) / log_p).clamp_(0, max_retries)
+    return timeout * (torch.exp2(r) - 1.0) + rtt / 2.0
+
+
+def _packet_completion_time(gen: torch.Generator, p: float, timeout: float,
+                            rtt: float, shape: tuple[int, ...],
+                            max_retries: int) -> torch.Tensor:
+    """Time until a packet is first delivered, with exponential backoff,
+    on the generator's device."""
+    u = torch.rand(shape, generator=gen, device=gen.device,
+                   dtype=torch.float32)
+    return _completion_from_uniform(u, p, timeout, rtt, max_retries)
+
+
+def handshake_times(seed: int, model: TCPModel, n: int, duplicated: bool,
+                    device="cuda") -> torch.Tensor:
+    """Monte-Carlo handshake completion times (n,) under the §3.1 model:
+    SYN, SYN-ACK and ACK, each from its own generator of ``seed``. Equal
+    seeds give the duplicated and single runs the same uniforms (CRN)."""
+    dev = resolve_device(device)
+    p = model.p_pair if duplicated else model.p_single
+    syn, synack, ack = (
+        _packet_completion_time(seeded_generator((seed, j), dev), p,
+                                timeout, model.rtt, (n,), model.max_retries)
+        for j, timeout in enumerate((model.syn_timeout, model.syn_timeout,
+                                     3.0 * model.rtt)))
+    return syn + synack + ack
+
+
+def handshake_mean_saving(model: TCPModel) -> float:
+    """First-order expected saving (the paper's back-of-envelope):
+    (3 + 3 + 3*RTT) * (p_single - p_pair)."""
+    dp = model.p_single - model.p_pair
+    return (model.syn_timeout * 2 + 3.0 * model.rtt) * dp
+
+
+# Cost-effectiveness benchmark from Vulimiri et al. [28, 29]:
+BENEFIT_THRESHOLD_MS_PER_KB = 16.0

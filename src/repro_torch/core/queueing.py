@@ -58,16 +58,16 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 
-import numpy as np
 import torch
 
 from repro_torch.core import cellplan
 from repro_torch.core import chunkflow
 from repro_torch.core import scenario as scenario_mod
 from repro_torch.core.distributions import ServiceDist
-from repro_torch.core.scenario import Variant
-from repro_torch.device import resolve_device
+from repro_torch.core.scenario import Scenario, Variant
+from repro_torch.device import resolve_device, seeded_generator
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.cell_update import ops as cell_ops
 from repro_torch.kernels.hist_sketch import ops as hist_ops
@@ -106,11 +106,7 @@ def _overhead_when_replicated(overhead: float, k: int) -> float:
 def _stream(seed: int, chunk: int, row: int, purpose: int, j: int,
             device: torch.device) -> torch.Generator:
     """The generator of stream ``(seed, chunk, row, purpose, j)``."""
-    words = np.random.SeedSequence(
-        [seed, chunk, row, purpose, j]).generate_state(2, np.uint32)
-    gen = torch.Generator(device=device)
-    gen.manual_seed((int(words[0]) << 31) ^ int(words[1]))
-    return gen
+    return seeded_generator((seed, chunk, row, purpose, j), device)
 
 
 def _arrival_part(seed: int, chunk: int, row: int, n: int, m: int,
@@ -365,8 +361,18 @@ def _chunk_inputs(unit_gaps, services, start: int, n_valid: int,
     valid = i < n_valid
     warm = (valid & (start + i >= warmup_start)).to(torch.float32)
     valid_f = valid.to(torch.float32)
-    cum = torch.cumsum(unit_gaps * valid_f, dim=1)
-    return cum, warm, valid_f, services * valid_f[None, :, None]
+    return (_row_cumsum(unit_gaps * valid_f), warm, valid_f,
+            services * valid_f[None, :, None])
+
+
+def _row_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """``torch.cumsum(x, dim=1)`` of an (S, T) tensor, the same bits in
+    every run. On CUDA a single row (S = 1) would take PyTorch's
+    device-wide scan, whose float32 order varies from run to run; two
+    copies of the row take the per-row scan, whose order is fixed."""
+    if x.is_cuda and x.shape[0] == 1:
+        return torch.cumsum(x.expand(2, -1), dim=1)[:1]
+    return torch.cumsum(x, dim=1)
 
 
 def _sweep_chunk_cells(free, ssum, comp, cnt, hist, unit_gaps, servers,
@@ -551,3 +557,89 @@ def run(seed: int, scenario: scenario_mod.ScenarioLike, rhos,
                    if isinstance(v, torch.Tensor) else v)
                for k, v in out.items()}
     return out
+
+
+def _warn_deprecated_shim(name: str) -> None:
+    warnings.warn(
+        f"queueing.{name} is a deprecated paper-default shim; use "
+        f"queueing.run with a Scenario (bit-identical output)",
+        DeprecationWarning, stacklevel=3)
+
+
+def _paper_default(dist_or_dists, ks, cfg: SimConfig) -> Scenario:
+    return Scenario.paper_default(dist_or_dists, ks=tuple(int(k) for k in ks),
+                                  client_overhead=cfg.client_overhead,
+                                  warmup_frac=cfg.warmup_frac)
+
+
+def sweep(seed: int, dist: ServiceDist, rhos, cfg: SimConfig, *,
+          ks: tuple[int, ...] = (1, 2), n_seeds: int = 2,
+          percentiles: tuple[float, ...] = DEFAULT_PERCENTILES,
+          n_bins: int = DEFAULT_BINS, chunk_size: int | None = None,
+          kernel: str = "auto", device="cuda") -> dict:
+    """Fused multi-(k, seed, load) sweep of the PAPER's model.
+
+    .. deprecated:: Thin shim over ``run(seed, Scenario.paper_default(
+       dist, ks=ks, ...), rhos, cfg, ...)`` — bit-identical output
+       (emits ``DeprecationWarning``); prefer ``run``.
+
+    Summary shapes, chunking and the CRN contract are exactly ``run``'s
+    (single-dist layout): ``(n_seeds, len(rhos), len(ks))``.
+    """
+    _warn_deprecated_shim("sweep")
+    return run(seed, _paper_default(dist, ks, cfg), rhos, cfg,
+               n_seeds=n_seeds, percentiles=percentiles, n_bins=n_bins,
+               chunk_size=chunk_size, kernel=kernel, device=device)
+
+
+def sweep_dists(seed: int, dist_list, rhos, cfg: SimConfig, *,
+                ks: tuple[int, ...] = (1, 2), n_seeds: int = 2,
+                percentiles: tuple[float, ...] = DEFAULT_PERCENTILES,
+                n_bins: int = DEFAULT_BINS, chunk_size: int | None = None,
+                kernel: str = "auto", device="cuda") -> dict:
+    """Sweep MANY service-time distributions in one engine call by stacking
+    them along the seed axis; summaries gain a leading dist axis
+    ``(len(dist_list), n_seeds, len(rhos), len(ks))``.
+
+    .. deprecated:: Thin shim over ``run`` with a multi-``dists``
+       ``Scenario.paper_default`` — bit-identical output (emits
+       ``DeprecationWarning``); prefer ``run``.
+    """
+    _warn_deprecated_shim("sweep_dists")
+    dist_list = tuple(dist_list)
+    out = run(seed, _paper_default(dist_list, ks, cfg), rhos, cfg,
+              n_seeds=n_seeds, percentiles=percentiles, n_bins=n_bins,
+              chunk_size=chunk_size, kernel=kernel, device=device)
+    if len(dist_list) == 1:  # run() adds the dist axis only for d > 1
+        out = {k: (v[None] if isinstance(v, torch.Tensor) else v)
+               for k, v in out.items()}
+    return out
+
+
+def mean_response(seed: int, dist: ServiceDist, rhos, cfg: SimConfig,
+                  k: int, n_seeds: int = 1, chunk_size: int | None = None,
+                  kernel: str = "auto", device="cuda") -> torch.Tensor:
+    """Post-warmup mean response (B,) averaged over ``n_seeds`` seeds."""
+    out = run(seed, _paper_default(dist, (k,), cfg), rhos, cfg,
+              n_seeds=n_seeds, percentiles=(), chunk_size=chunk_size,
+              kernel=kernel, device=device)
+    return out["mean"][:, :, 0].mean(dim=0)
+
+
+def replication_gain(seed: int, dist: ServiceDist, rhos, cfg: SimConfig,
+                     k: int = 2, n_seeds: int = 2,
+                     chunk_size: int | None = None, kernel: str = "auto",
+                     device="cuda") -> torch.Tensor:
+    """mean_k1(rho) - mean_k(rho), CRN-paired per seed. Positive = k helps.
+
+    .. deprecated:: Thin shim over ``run`` with a paper-default
+       ``Scenario`` at ``ks=(1, k)`` (emits ``DeprecationWarning``);
+       prefer ``run`` + a paired-gain reduction (or
+       ``threshold.scenario_gain``). Takes no ``mesh``: the sharded
+       executor is not ported."""
+    _warn_deprecated_shim("replication_gain")
+    out = run(seed, _paper_default(dist, (1, k), cfg), rhos, cfg,
+              n_seeds=n_seeds, percentiles=(), chunk_size=chunk_size,
+              kernel=kernel, device=device)
+    m = out["mean"]  # (S, B, 2)
+    return (m[:, :, 0] - m[:, :, 1]).mean(dim=0)

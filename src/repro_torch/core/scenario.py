@@ -173,6 +173,23 @@ class Degradation:
 
 HEALTHY = Degradation()
 
+_POLICY_NAMES = {p.name.lower(): p for p in Policy}
+_MODEL_NAMES = {m.name.lower(): m for m in ServiceModel}
+
+
+def parse_policy(name: Union[str, int, Policy]) -> Policy:
+    """CLI-friendly lookup: 'cancel_on_complete' -> Policy (case-insensitive)."""
+    if isinstance(name, str):
+        return _POLICY_NAMES[name.lower()]
+    return Policy(name)
+
+
+def parse_service_model(name: Union[str, int, ServiceModel]) -> ServiceModel:
+    """CLI-friendly lookup: 'server_dependent' -> ServiceModel."""
+    if isinstance(name, str):
+        return _MODEL_NAMES[name.lower()]
+    return ServiceModel(name)
+
 @dataclasses.dataclass(frozen=True)
 class Variant:
     """One execution variant — a (k, policy, model, mix, overhead,
@@ -362,6 +379,25 @@ def combine(scenario: ScenarioLike) -> tuple[tuple[ServiceDist, ...], float,
         variants_l.extend(dataclasses.replace(v, dist_id=did)
                           for v in s.variants())
     return tuple(union), first.warmup_frac, tuple(variants_l)
+
+
+def provenance(scenario: ScenarioLike) -> Union[dict, list]:
+    """JSON-serializable description of a scenario (benchmark rows record
+    this next to each measurement): policy / service model / mix / ks /
+    overhead per scenario."""
+    if not isinstance(scenario, Scenario):
+        return [provenance(s) for s in scenario]
+    prov = {"policy": scenario.policy.name,
+            "service_model": scenario.service_model.name,
+            "mix": scenario.mix, "ks": list(scenario.ks),
+            "client_overhead": scenario.client_overhead,
+            "dists": [d.name for d in scenario.dists]}
+    if not scenario.degradation.healthy or scenario.delay:
+        prov["degradation"] = {"p_slow": scenario.degradation.p_slow,
+                               "slow_factor": scenario.degradation.slow_factor,
+                               "p_fail": scenario.degradation.p_fail}
+        prov["delay"] = scenario.delay
+    return prov
 
 
 def any_server_dependent(variants: Iterable[Variant]) -> bool:

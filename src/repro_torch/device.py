@@ -1,6 +1,8 @@
-"""Device resolution shared by the port's entry points."""
+"""Device resolution and seeded generators shared by the port's entry
+points."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -18,3 +20,13 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
     return dev
+
+
+def seeded_generator(words, device) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded from the int sequence
+    ``words`` (through ``numpy.random.SeedSequence``), so a stream is a
+    pure function of those ints."""
+    state = np.random.SeedSequence(list(words)).generate_state(2, np.uint32)
+    gen = torch.Generator(device=device)
+    gen.manual_seed((int(state[0]) << 31) ^ int(state[1]))
+    return gen

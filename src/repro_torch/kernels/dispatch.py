@@ -26,22 +26,28 @@ def check_mode(kernel: str) -> str:
     return kernel
 
 
-def use_kernel(kernel: str, *tensors: torch.Tensor) -> bool:
-    """Whether this call launches the CUDA kernel (see the module note).
-    All ``tensors`` must share one device."""
+def resolve(kernel: str, device) -> str:
+    """The mode a call under ``kernel`` takes on ``device``: ``"on"`` (the
+    CUDA kernel) or ``"off"`` (the plain version); see the module note."""
     check_mode(kernel)
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"tensors span several devices: {sorted(map(str, devices))}")
-    dev = devices.pop()
+    dev = torch.device(device)
     if kernel == "off":
-        return False
+        return "off"
     if dev.type == "cuda":
-        return True
+        return "on"
     if dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     if kernel == "on":
         raise RuntimeError(
             "kernel='on' needs CUDA tensors; the CUDA kernels do not run "
             "on the CPU (kernel='auto' or 'off' takes the plain version)")
-    return False
+    return "off"
+
+
+def use_kernel(kernel: str, *tensors: torch.Tensor) -> bool:
+    """Whether this call launches the CUDA kernel (``resolve`` on the
+    tensors' device). All ``tensors`` must share one device."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors span several devices: {sorted(map(str, devices))}")
+    return resolve(kernel, devices.pop()) == "on"

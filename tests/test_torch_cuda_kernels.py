@@ -125,6 +125,24 @@ def test_cell_plan_smem_equals_the_library_layout(cuda_device, timed):
                                 plan, **shape) == need, (plan, shape)
 
 
+@pytest.mark.parametrize("n_seeds", [1, 2])
+def test_chunk_arrival_offsets_are_the_same_bits_every_run(cuda_device,
+                                                          n_seeds):
+    # a figure's one-seed stream at full length: the engine's inputs, and
+    # so its summaries, must not vary from run to run on the card
+    from repro_torch.core import queueing
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    gaps = torch.rand((n_seeds, 80_384), generator=gen, device=cuda_device)
+    services = torch.rand((n_seeds, 80_384, 2), generator=gen,
+                          device=cuda_device)
+    runs = [queueing._chunk_inputs(gaps, services, 0, 80_000, 8_000)[0]
+            for _ in range(20)]
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    want = torch.cumsum(gaps.cpu().double() * (torch.arange(80_384) < 80_000),
+                        dim=1)
+    assert torch.allclose(runs[0].cpu().double(), want, rtol=1e-5)
+
+
 def test_run_with_kernels_equals_plain_run(cuda_device):
     d = dists.pareto(2.2)
     grid = (Scenario.paper_default(d, ks=(1, 2)),

@@ -111,12 +111,35 @@ nonzero:
      version, bit-equal to the kernels (six at full size, fig3 and fig4
      at their smoke size: ``FULL_SIZE_PARITY``); and fig14's headline
      packet simulation on the card and on the CPU, delivery slots equal.
+     The same phase runs the benchmarks beside the figures
+     (``BENCH_MODULES``: sweep_engine at its smoke size, serving_hedge
+     with 100k virtual requests, fig_policy_space, fig_fault_masking and
+     roofline at full size), held to
+     the JAX package's test assertions (``bench_gates``: the policy-space
+     crossover, the fault-masking completed fractions and chaos booleans,
+     the adaptive controller no worse and strictly better, the old and
+     fused thresholds equal, chunked within a grid step, roofline
+     fractions at most 1), and holds fig_policy_space and
+     fig_fault_masking bit for bit against the plain version at their
+     smoke size;
+ 14. the adaptive serving stack at full width, as the port's
+     ``examples/serve_hedged`` drives it: ``threshold.policy_table`` with
+     serving_hedge's full-size arguments (``cell_update`` launches read
+     around exactly that call), then ``BatchedHedgedService`` over 4
+     replicas of gemma2-2b (26 layers, one shared model) replaying 32
+     Poisson requests through ``replay_live`` with an
+     ``AdaptiveController`` on that table, and 32 more at static k=2
+     with replica r0 crashed a third of the way in: every request
+     completes, its tokens equal a lone engine's, and both attention
+     kernels launch in each run; the adaptive run once more under
+     ``torch.profiler`` for the device's idle share.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. A kernel's ``launches`` there are those
-of its main path's run (phase 4, 8, 10 or 12), and ``cell_update``'s
-``figure_launches`` those of phase 13's figures; ``hist_accum``, which no
-main path launches, reads 0 and gives its launches in phase 2 as
+of its main path's run (phase 4, 8, 10 or 12), ``cell_update``'s
+``figure_launches`` those of phase 13's modules, and ``serving_launches``
+(``cell_update`` and the attention kernels) phase 14's; ``hist_accum``,
+which no main path launches, reads 0 and gives its launches in phase 2 as
 ``check_launches``. Needs CUDA and the repository's
 ``src/`` beside this script (or ``--src``); imports nothing of JAX or of
 ``repro``. ``--gates`` records every gate of phases 2, 3, 5-7, 9 and 11
@@ -138,13 +161,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# Published H100 SXM peaks (NVIDIA data sheet): device memory rate, the
-# float32 rate outside the tensor cores and the dense bf16 and TF32
-# tensor-core rates, for the kernels' bounds.
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-BF16_OPS_PER_S = 989e12
-TF32_OPS_PER_S = 495e12
+# The H100's published peaks for the kernels' bounds: memory rate, the
+# float32 rate outside the tensor cores, the bf16 and TF32 tensor-core
+# rates. They live in ``repro_torch.device`` (with the roofline's); ``main``
+# reads them once the package is on the path (``load_peaks``).
+HBM_BYTES_PER_S = F32_OPS_PER_S = BF16_OPS_PER_S = TF32_OPS_PER_S = None
 
 ATTN_TOL = 2e-2    # bf16 tolerance of tests/test_kernels.py, anywhere
 ATTN_REL = 2**-6   # per row, of the row's largest |value|: two bf16 ulps
@@ -155,6 +176,16 @@ MAX_LEN = 4672     # dense (global-layer) cache: prompt + steps, rounded up
 
 FIG2_LOADS = 24
 CHUNK = 4096
+
+
+def load_peaks() -> None:
+    """Read the card's peaks from ``repro_torch.device``."""
+    global HBM_BYTES_PER_S, F32_OPS_PER_S, BF16_OPS_PER_S, TF32_OPS_PER_S
+    from repro_torch import device
+    HBM_BYTES_PER_S, F32_OPS_PER_S = device.HBM_BYTES_PER_S, \
+        device.F32_OPS_PER_S
+    BF16_OPS_PER_S, TF32_OPS_PER_S = device.BF16_OPS_PER_S, \
+        device.TF32_OPS_PER_S
 
 
 def log(msg: str) -> None:
@@ -1237,11 +1268,27 @@ ENGINE_FIGURES = ("fig1_queueing", "fig2_threshold", "fig3_random",
 FULL_SIZE_PARITY = ("fig1_queueing", "fig2_threshold", "fig5_diskdb",
                     "fig12_memcached", "fig15_dns", "fig_cross_system")
 NETSIM_SLOTS = 1024  # slots of fig14's headline run timed for slots/s
+# The benchmarks beside the figures (all run ``cell_update``); the first
+# two are held against the plain version at their smoke size, as fig3 and
+# fig4 are.
+BENCH_MODULES = ("sweep_engine", "fig_policy_space", "fig_fault_masking",
+                 "serving_hedge", "roofline")
+SMOKE_PARITY = ("fig_policy_space", "fig_fault_masking")
+# Depth cuts of phase 13, to hold the script within its time budget
+# (PERF.md §4): sweep_engine runs at its smoke size (its old path steps 3
+# families of 5,000 arrivals on the host; one family at full size took
+# 30-47 s, ``python -m repro_torch.bench.sweep_engine``), and
+# serving_hedge replays 100k virtual requests a policy instead of 1M
+# (21.5 s for the three replays on the card's host).
+MODULE_ARGS = {"sweep_engine": ["--smoke"]}
+VIRTUAL_REQUESTS = 100_000
 
 
 def parse_derived(derived: str) -> dict:
-    """A row's ``derived`` field, ``key=value;...``, as a dict of strings."""
-    return dict(part.split("=", 1) for part in derived.split(";"))
+    """A row's ``derived`` field, ``key=value;...``, as a dict of strings
+    (a field of prose, with no ``=``, gives an empty dict)."""
+    return dict(part.split("=", 1) for part in derived.split(";")
+                if "=" in part)
 
 
 def same_bits(a, b) -> bool:
@@ -1326,37 +1373,93 @@ def figure_gates(rows: list[dict]) -> list[str]:
     return failed
 
 
+def bench_gates(rows: list[dict]) -> list[str]:
+    """The JAX package's test assertions on the five benchmarks beside the
+    figures, read off their rows; returns the failures."""
+    d = {r["name"]: parse_derived(r["derived"]) for r in rows}
+    failed: list[str] = []
+
+    def need(ok: bool, msg: str) -> None:
+        if not ok:
+            failed.append(msg)
+
+    def flags(name: str, *keys: str) -> None:
+        for key in keys:
+            need(d[name][key] == "True", f"{name}: {key}={d[name][key]}")
+
+    flags("fig_policy_space/crossover", "crossover")
+    # completed fractions at fault rate f: bare loses f/2 (blackholed
+    # primaries), the delayed hedge (f/2)^2 (both copies), retry none;
+    # within 5 binomial standard errors of the post-warmup requests (3
+    # seeds of fig_fault_masking's count)
+    from repro_torch.bench.fig_fault_masking import CFG
+    count = 3 * (CFG.n_arrivals - int(CFG.n_arrivals * CFG.warmup_frac))
+    for f in (0.0, 0.04, 0.08):
+        for policy, loss in (("bare", f / 2), ("hedge", (f / 2) ** 2),
+                             ("retry", 0.0)):
+            name = f"fig_fault_masking/{policy}@f{f:g}"
+            got = 1.0 - float(d[name]["completed_frac"])
+            tol = 5 * math.sqrt(loss * (1 - loss) / count)
+            need(abs(got - loss) <= tol + 5e-5,  # the row's 4 decimals
+                 f"{name}: lost {got} of its requests, not {loss} within "
+                 f"{tol}")
+    flags("fig_fault_masking/engine", "retry_completes_all",
+          "completion_order")
+    flags("fig_fault_masking/chaos", "hedged_completes_all",
+          "hedged_p99_within_2x", "retry_degrades_more", "masked")
+    flags("serving/adaptive_vs_static", "no_worse", "strictly_better")
+    delta = float(d["sweep_engine/total"]["max_threshold_delta"])
+    need(delta <= 1e-3, f"sweep_engine old vs fused thresholds differ by "
+         f"{delta}")
+    for name in d:
+        if name.startswith("sweep_engine/chunked/"):
+            flags(name, "match")
+    flags("sweep_engine/kernel_on_vs_off", "bit_identical")
+    flags("sweep_engine/pipeline_on_vs_off", "bit_identical")
+    need(d["sweep_engine/kernel_on_vs_off"]["kernel"] == "on",
+         "sweep_engine's kernel leg did not run the kernel")
+    for leg in ("scan", "kernel"):
+        row = d[f"roofline/cell_update/{leg}"]
+        for key in ("peak_frac", "hbm_frac"):
+            need(float(row[key]) <= 1.0, f"roofline {leg}: {key} "
+                 f"{row[key]} above 1")
+    return failed
+
+
 def paper_figures() -> int:
-    """Phase 13: every figure module at full size through the user entry
-    point ``repro_torch.bench.run.main`` (one call a figure, ``--only``;
-    ``kernel="auto"``), its rows, walls and gates (``figure_gates``),
-    with the kernels' launches read around each call (``cell_update`` in
-    every engine figure and no other, ``hist_accum`` in none); fig5 once
-    more under ``torch.profiler`` for the device's idle share; each
-    engine figure again with ``kernel="off"``, bit-equal to
-    ``kernel="on"`` (at full size those of ``FULL_SIZE_PARITY``, the
-    others at their smoke size); and ``netsim._simulate`` at fig14's headline
-    configuration on the card and on the CPU, equal in every element,
-    with its slots per second on the card. Returns ``cell_update``'s
-    launches in the figures' runs."""
+    """Phase 13: every figure and benchmark module through the user entry
+    point ``repro_torch.bench.run.main`` (one call a module, ``--only``;
+    ``kernel="auto"``; at full size but for ``MODULE_ARGS`` and
+    ``VIRTUAL_REQUESTS``), its rows, walls and gates (``figure_gates``,
+    ``bench_gates``), with the kernels' launches read around each call
+    (``cell_update`` in every engine figure and benchmark and no other,
+    ``hist_accum`` in none); fig5 once more
+    under ``torch.profiler`` for the device's idle share; each engine
+    figure again with ``kernel="off"``, bit-equal to ``kernel="on"`` (at
+    full size those of ``FULL_SIZE_PARITY``, the others and
+    ``SMOKE_PARITY`` at their smoke size); and ``netsim._simulate`` at
+    fig14's headline configuration on the card and on the CPU, equal in
+    every element, with its slots per second on the card. Returns
+    ``cell_update``'s launches in the modules' runs."""
     import importlib
 
     import torch
 
-    from repro_torch.bench import fig14_network, fig5_diskdb
+    from repro_torch.bench import fig14_network, fig5_diskdb, serving_hedge
     from repro_torch.bench import run as bench_run
     from repro_torch.core import netsim
     from repro_torch.kernels.cell_update import kernel as cell_kernel
     from repro_torch.kernels.hist_sketch import kernel as hist_kernel
 
     rows, walls, launches = [], {}, {}
+    serving_hedge.N_VIRTUAL = VIRTUAL_REQUESTS
     for mod in bench_run.MODULES:
         name = mod.__name__.split(".")[-1]
         cell_kernel.cell_update_cuda.launches = 0
         hist_kernel.hist_accum_cuda.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = bench_run.main(["--only", name])
+        out = bench_run.main(["--only", name] + MODULE_ARGS.get(name, []))
         torch.cuda.synchronize()
         walls[name] = time.perf_counter() - t0
         launches[name] = {"cell_update": cell_kernel.cell_update_cuda.launches,
@@ -1367,16 +1470,19 @@ def paper_figures() -> int:
                 f"{row['kernel']}, {row['us_per_call']} us)")
         log(f"[13] {name}: {walls[name]}s wall, kernel launches "
             f"{json.dumps(launches[name])}")
-        engine = name in ENGINE_FIGURES
+        engine = name in ENGINE_FIGURES + BENCH_MODULES
         if launches[name]["hist_accum"] != 0 or \
                 engine != (launches[name]["cell_update"] > 0):
             raise AssertionError(f"{name} launched hist_accum, or "
                                  f"cell_update {launches[name]} where its "
-                                 f"engine figure status is {engine}")
+                                 f"engine status is {engine}")
     total = sum(n["cell_update"] for n in launches.values())
-    log(f"[13] figures: {sum(walls.values())}s wall, {total} cell_update "
-        f"launches; {rows[0]['gpu']}")
-    failed = figure_gates(rows)
+    figures = [n for n in walls if n not in BENCH_MODULES]
+    log(f"[13] figures: {sum(walls[n] for n in figures)}s wall; the "
+        f"benchmarks {', '.join(BENCH_MODULES)}: "
+        f"{sum(walls[n] for n in BENCH_MODULES)}s wall; {total} "
+        f"cell_update launches; {rows[0]['gpu']}")
+    failed = figure_gates(rows) + bench_gates(rows)
     if failed:
         raise AssertionError("phase 13: " + "; ".join(failed))
 
@@ -1385,7 +1491,7 @@ def paper_figures() -> int:
         f"{json.dumps(tr)}")
 
     t_cmp = time.perf_counter()
-    for name in ENGINE_FIGURES:
+    for name in ENGINE_FIGURES + SMOKE_PARITY:
         mod = importlib.import_module(f"repro_torch.bench.{name}")
         smoke = name not in FULL_SIZE_PARITY
         size = "its smoke size" if smoke else "full size"
@@ -1423,6 +1529,129 @@ def paper_figures() -> int:
             f"({int((cpu >= 0).sum())} delivered); {rate} slots/s on the "
             f"card over its first {NETSIM_SLOTS} slots")
     return total
+
+
+# Phase 14: the adaptive serving stack at full width, as the port's
+# serve_hedged example drives it.
+SERVE_REPLICAS = 4
+SERVE_REQUESTS = 32  # each live replay: poisson_trace at rho 0.2
+
+
+def controller_us(table, mean_s: float, n: int = 20_000) -> float:
+    """Microseconds of one ``AdaptiveController.on_arrival`` (its decision
+    amortized over the stride) on ``table``, host clock."""
+    from repro_torch.serving.controller import AdaptiveController
+
+    ctl = AdaptiveController(table, n_replicas=SERVE_REPLICAS,
+                             mean_service_s=mean_s, hysteresis=0.1,
+                             decision_stride=4)
+    t0 = time.perf_counter()
+    for i in range(n):
+        ctl.on_arrival(i * mean_s)
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def serving_stack(dev) -> dict:
+    """Phase 14: the port's ``serve_hedged`` through the adaptive stack at
+    full width. (a) ``threshold.policy_table`` with serving_hedge's full-
+    size arguments, ``cell_update`` launches read around exactly that
+    call; (b) ``BatchedHedgedService`` over 4 ``InferenceEngine`` replicas
+    of gemma2-2b (26 layers, random weights from the port's init, seed 0,
+    one shared model), an ``AdaptiveController`` on (a)'s table with the
+    mean service time of a warm request, ``Telemetry``, a Poisson trace
+    of 32 requests (16-token prompts, 4 new tokens, rho 0.2) through
+    ``replay_live``; (c) the same service at static k=2 over a second
+    trace, replica r0 crashed by ``FaultInjector`` a third of the way in.
+    Gates: every request completes (32 of 32, none failed), its tokens
+    equal a lone engine's for its prompt, and ``flash_attention`` and
+    ``decode_attention`` launch in (b) and (c). (b) runs once more under
+    ``torch.profiler`` for the device's idle share. Returns the phase's
+    launches of the three kernels."""
+    import numpy as np
+    import torch
+
+    from repro_torch.bench import serving_hedge
+    from repro_torch.examples import serve_hedged
+    from repro_torch.kernels.cell_update import kernel as cell_kernel
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.serving.controller import PolicyTable
+    from repro_torch.serving.engine import InferenceEngine
+
+    t_phase = time.perf_counter()
+    cell_kernel.cell_update_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tab = serving_hedge.policy_table_sweep(smoke=False, device=dev)
+    torch.cuda.synchronize()
+    t_table = time.perf_counter() - t0
+    launches = {"cell_update": cell_kernel.cell_update_cuda.launches,
+                "flash_attention": 0, "decode_attention": 0}
+    table = PolicyTable.from_sweep(tab)
+    log(f"[14] (a) policy_table (two-point(0.9), 8 replicas, "
+        f"{serving_hedge.TABLE_ARRIVALS} arrivals, {len(table.rhos)} loads "
+        f"x {table.n_variants} variants x 2 seeds): {t_table}s, "
+        f"{launches['cell_update']} cell_update launches; best variant "
+        f"(k, delay) at 0.1/0.3/0.75: "
+        f"{[table.entry(table.best(r)) for r in (0.1, 0.3, 0.75)]}")
+    if launches["cell_update"] <= 0:
+        raise AssertionError("policy_table launched no cell_update")
+
+    t0 = time.perf_counter()
+    cfg, model, engines = serve_hedged.make_replicas(
+        "gemma2-2b", False, SERVE_REPLICAS, dev)
+    lone = InferenceEngine(cfg, model, max_len=64, name="lone", device=dev)
+    mean_s = serve_hedged.mean_service_s(lone)
+    log(f"[14] gemma2-2b ({cfg.n_layers} layers), {SERVE_REPLICAS} replicas "
+        f"over one model: {time.perf_counter() - t0}s to init and warm; a "
+        f"request alone ({serve_hedged.PROMPT_LEN}-token prompt, "
+        f"{serve_hedged.NEW_TOKENS} new tokens) takes {mean_s * 1e3} ms; "
+        f"the controller's on_arrival {controller_us(table, mean_s)} us")
+
+    runs = (("(b) adaptive", {"table": table}),
+            ("(c) static k=2, r0 crashed at a third",
+             {"k": 2, "crash": "r0", "seed": 1,
+              "shed_watermark": serve_hedged.STATIC_NO_SHED}))
+    failed = []
+    for tag, kw in runs:
+        fa_kernel.flash_attention_cuda.launches = 0
+        da_kernel.decode_attention_cuda.launches = 0
+        torch.cuda.synchronize()
+        r = serve_hedged.live_replay(engines, n_requests=SERVE_REQUESTS,
+                                     mean_s=mean_s, **kw)
+        torch.cuda.synchronize()
+        got = {"flash_attention": fa_kernel.flash_attention_cuda.launches,
+               "decode_attention": da_kernel.decode_attention_cuda.launches}
+        for k, v in got.items():
+            launches[k] += v
+        bad = serve_hedged.check_tokens(lone, r["requests"])
+        lat, tel, st = r["latency_s"], r["telemetry"], r["stats"]
+        ctl = r["controller"]
+        log(f"[14] {tag}: {SERVE_REQUESTS} requests in {r['wall_s']}s wall; "
+            f"completions {tel['completions']}, failed {st['failed']}; "
+            f"latency mean {float(lat.mean()) * 1e3} ms, p50 "
+            f"{float(np.percentile(lat, 50)) * 1e3} ms, p99 "
+            f"{float(np.percentile(lat, 99)) * 1e3} ms; hedges "
+            f"{st['hedged']}, cancels {st['cancelled_copies']}, duplicate "
+            f"wins {st['duplicate_wins']}, shed {st['shed']}; controller "
+            f"{json.dumps(ctl)}; decisions (rho_hat, k, delay, switched) "
+            f"{json.dumps(r['decisions'])}; kernel launches "
+            f"{json.dumps(got)}; tokens differing from a lone engine: {bad}")
+        if tel["completions"] != SERVE_REQUESTS or st["failed"] or bad \
+                or min(got.values()) <= 0:
+            failed.append(f"{tag}: completions {tel['completions']}, "
+                          f"failed {st['failed']}, tokens differ in {bad}, "
+                          f"launches {got}")
+    if failed:
+        raise AssertionError("phase 14: " + "; ".join(failed))
+
+    tr = traced(lambda: serve_hedged.live_replay(
+        engines, n_requests=SERVE_REQUESTS, mean_s=mean_s, table=table))
+    log(f"[14] trace of (b): {json.dumps(tr)}")
+    del engines, lone, model
+    torch.cuda.empty_cache()
+    log(f"[14] phase 14: {time.perf_counter() - t_phase}s")
+    return launches
 
 
 # Planted faults (``--faults``): each edits one kernel source of a copy of
@@ -1635,6 +1864,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
+    load_peaks()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.faults is not None:
@@ -2024,6 +2254,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     figure_launches = paper_figures()
     log(f"[13] phase 13: {time.perf_counter() - t0:.1f}s")
+
+    # --------------------------------------------------------------- 14
+    serving_launches = serving_stack(dev)
     check_imports()
 
     # ----------------------------------------------------------- output
@@ -2035,6 +2268,7 @@ def main(argv=None) -> int:
          "replaces": "src/repro/kernels/cell_update/kernel.py:378",
          "launches": launches["cell_update"],
          "figure_launches": figure_launches,
+         "serving_launches": serving_launches["cell_update"],
          "max_abs_err": errs["cell_update"], "ms": ms_cell,
          "plain_ms": plain_cell, "bound_ms": cell_bound,
          "bound_by": cell_by, "library_ms": None},
@@ -2054,7 +2288,8 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": f"src/repro/kernels/{pkg}/kernel.py:{line}",
-            "launches": launches[name], **a})
+            "launches": launches[name],
+            "serving_launches": serving_launches[name], **a})
     for name, line in (("ssd_scan", 62), ("rglru_scan", 46)):
         record["kernels"].append({
             "name": name, "route": "cuda",

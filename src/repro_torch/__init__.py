@@ -11,10 +11,16 @@ NVIDIA H100 through hand-written CUDA kernels:
     ``serving.scheduler``, the model in ``models``), through
     ``kernels.flash_attention`` (prefill), ``kernels.decode_attention``
     (decode), ``kernels.ssd_scan`` and ``kernels.rglru_scan``;
+  * adaptive hedged serving (``serving.service``'s
+    ``BatchedHedgedService`` with ``serving.controller``'s
+    ``AdaptiveController`` on a ``threshold.policy_table``, telemetry in
+    ``serving.metrics``, trace replay in ``serving.replay``, fault
+    injection in ``serving.faults``; ``examples.serve_hedged``);
   * the paper's empirical systems (``core.storage_sim``, ``core.dns``,
-    ``core.netsim`` and the TCP model of ``core.analytic``) and its
-    figures (``bench``: ``python -m repro_torch.bench.run``), the engine
-    figures through ``kernels.cell_update``.
+    ``core.netsim`` and the TCP model of ``core.analytic``), its
+    figures and the benchmarks beside them (``bench``: ``python -m
+    repro_torch.bench.run``), the engine ones through
+    ``kernels.cell_update``; runnable examples in ``examples``.
 
 It imports torch and numpy only — never JAX, and nothing of ``repro``.
 

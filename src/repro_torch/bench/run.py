@@ -1,8 +1,9 @@
 """Benchmark harness of the PyTorch port — one module per paper
 table/figure (the twins of the JAX package's ``benchmarks/``).
 
-    python -m repro_torch.bench.run                     # every figure, card
+    python -m repro_torch.bench.run                     # every module, card
     python -m repro_torch.bench.run --only fig15        # one module
+    python -m repro_torch.bench.run --only serving_hedge
     python -m repro_torch.bench.run --smoke --device cpu --json BENCH_cpu.json
 
 Prints ``name,us_per_call,derived`` CSV and, on standard error, each
@@ -34,13 +35,16 @@ import time
 from repro_torch.bench import (fig1_queueing, fig2_threshold, fig3_random,
                                fig4_overhead, fig5_diskdb, fig12_memcached,
                                fig14_network, fig15_dns, fig_cross_system,
-                               tab_tcp)
+                               fig_fault_masking, fig_policy_space, roofline,
+                               serving_hedge, sweep_engine, tab_tcp)
 from repro_torch.bench.common import row_provenance
 from repro_torch.device import resolve_device
 
-MODULES = (fig1_queueing, fig2_threshold, fig3_random, fig4_overhead,
-           fig5_diskdb, fig12_memcached, fig14_network, fig15_dns,
-           fig_cross_system, tab_tcp)
+# the JAX harness's order (``benchmarks/run.py``)
+MODULES = (sweep_engine, fig_policy_space, fig1_queueing, fig2_threshold,
+           fig3_random, fig4_overhead, fig5_diskdb, fig12_memcached,
+           fig14_network, fig15_dns, fig_cross_system, tab_tcp,
+           fig_fault_masking, serving_hedge, roofline)
 
 
 def card_line(dev) -> str:

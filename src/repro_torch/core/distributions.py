@@ -318,3 +318,13 @@ def scaled(dist: ServiceDist, scale: float) -> ServiceDist:
     return ServiceDist(f"{dist.name}*{scale:g}", sample, mean=dist.mean * scale,
                        variance=var)
 
+
+
+# Registry used by the benchmarks and the explorer's command line.
+FAMILIES = {
+    "exponential": exponential,
+    "deterministic": deterministic,
+    "pareto": pareto,
+    "weibull": weibull,
+    "two_point": two_point,
+}

@@ -70,6 +70,7 @@ from repro_torch.core.scenario import Scenario, Variant
 from repro_torch.device import resolve_device, seeded_generator
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.cell_update import ops as cell_ops
+from repro_torch.kernels.cell_update import ref as cell_ref
 from repro_torch.kernels.hist_sketch import ops as hist_ops
 from repro_torch.kernels.hist_sketch.ops import (DEFAULT_BINS,  # noqa: F401
                                                  HIST_HI, HIST_LO)
@@ -80,6 +81,13 @@ DEFAULT_PERCENTILES = (50.0, 90.0, 99.0, 99.9)
 # up to a multiple of this with zero-weight no-op arrivals when the
 # sketch is on.
 _SKETCH_BLOCK = 512
+
+# Why ``run(mesh=)``, sweep_engine's sharded part and the explorer's
+# ``--devices`` raise: the one message all three give.
+MESH_NOT_PORTED = (
+    "a sharded 'cells' mesh runs the sharded executor, which belongs to the "
+    "port's multi-device slice (repro.distributed.sweep_shard; ROADMAP "
+    "queue 1 item 13) and is not ported yet")
 
 # Purposes of the generator streams (see the module note).
 _GAPS, _FIRST, _SCORES, _SERVICE, _SHARED, _DEGRADE_STREAM = range(6)
@@ -245,11 +253,146 @@ def make_sampler(seed: int, dist_list, cfg: SimConfig, k_max: int,
                                     with_shared, with_degr), seed, device)
 
 
+# ---------------------------------------------------------------------------
+# Raw per-arrival responses (one variant)
+# ---------------------------------------------------------------------------
+
+def _sample_inputs(seed: int, dist: ServiceDist, cfg: SimConfig, k_max: int,
+                   with_shared: bool = False, with_degr: bool = False, *,
+                   row: int = 0, device):
+    """All randomness of one stream up front: unit gaps (M,), copy sets
+    (M, k_max) and service columns (M, n_svc), from the streams of seed
+    row ``row`` of an unchunked ``run`` (the same draws, so copy 0 is
+    shared by every k)."""
+    gaps, servers = _arrival_part(seed, 0, row, cfg.n_servers,
+                                  cfg.n_arrivals, k_max, device)
+    services = _service_part(seed, 0, row, dist, cfg.n_arrivals, k_max,
+                             with_shared, with_degr, device)
+    return gaps, servers, services
+
+
+def _scan_sim(arrivals: torch.Tensor, servers: torch.Tensor,
+              services: torch.Tensor, n_servers: int,
+              variant: Variant) -> torch.Tensor:
+    """Run the FIFO replication DES for ONE scenario variant: arrivals
+    (M,) — or (B, M), B loads stepped together over the same copy sets
+    and service draws — servers (M, k), services (M, k) or with the
+    shared component and the degradation uniforms after the copies ->
+    response times of the arrivals' shape.
+
+    Each arrival is one call of ``cell_update.ref.step_cell``, the
+    physics of the engine and of the ``cell_update`` kernel. This is the
+    plain path by design: the kernel folds responses into sums and a
+    sketch, and raw per-arrival responses are what this returns. On the
+    card it is paced by the host, one arrival at a time."""
+    t_all = arrivals.reshape(-1, arrivals.shape[-1])             # (C, M)
+    c, m = t_all.shape
+    dev = t_all.device
+    k = servers.shape[1]
+    n_base = k + (1 if variant.needs_shared_draw else 0)
+
+    def f32(x):
+        return torch.tensor(float(x), dtype=torch.float32, device=dev)
+
+    shared = services[:, k if variant.needs_shared_draw else 0, None]
+    degr = (services[:, n_base:n_base + k] if variant.needs_degradation_draw
+            else torch.zeros_like(services[:, :k]))
+    svc, alive = cell_ref.service_times(
+        services[:, :k], shared, degr,
+        torch.tensor(int(variant.service_model), device=dev),
+        f32(variant.mix), f32(variant.p_slow), f32(variant.slow_factor),
+        f32(variant.p_fail))                                     # (M, k)
+    policy = torch.full((c,), int(variant.policy), dtype=torch.int32,
+                        device=dev)
+    mask = torch.ones((c, k), dtype=torch.bool, device=dev)
+    ovh = f32(_overhead_when_replicated(variant.overhead, k)).expand(c)
+    srv_all = servers.to(torch.int64)
+    timed = {}
+    if variant.policy in scenario_mod.TIMED_POLICIES:
+        is_retry = variant.policy == scenario_mod.Policy.TIMEOUT_RETRY
+        coeff = torch.tensor(cell_ref.retry_offsets(k) if is_retry
+                             else [float(j) for j in range(k)],
+                             dtype=torch.float32, device=dev)
+        delay = f32(variant.delay)
+        alive_eff = alive.clone()
+        if is_retry:  # the last attempt in budget ignores its blackhole
+            alive_eff[:, k - 1] = True
+        timed = dict(disp_t=t_all[:, :, None] + delay * coeff,  # (C, M, k)
+                     alive_eff=alive_eff, fire_all=(delay <= 0.0).expand(c))
+    free = torch.zeros((c, n_servers), dtype=torch.float32, device=dev)
+    resp = torch.empty((c, m), dtype=torch.float32, device=dev)
+    arms = {int(variant.policy)}
+    for s in range(m):
+        kw = {}
+        if timed:
+            kw = dict(disp_t=timed["disp_t"][:, s],
+                      alive_eff=timed["alive_eff"][s].expand(c, k),
+                      fire_all=timed["fire_all"])
+        resp[:, s] = cell_ref.step_cell(
+            free, t_all[:, s], srv_all[s].expand(c, k),
+            svc[s].expand(c, k), alive[s].expand(c, k), mask, ovh, policy,
+            arms=arms, **kw)
+    return resp.reshape(arrivals.shape)
+
+
+def _default_scenario(dist: ServiceDist, cfg: SimConfig,
+                      scenario: Scenario | None) -> Scenario:
+    return scenario or Scenario.paper_default(
+        dist, client_overhead=cfg.client_overhead,
+        warmup_frac=cfg.warmup_frac)
+
+
+def simulate(seed: int, dist: ServiceDist, rho, cfg: SimConfig, k: int = 1,
+             *, scenario: Scenario | None = None, row: int = 0,
+             device="cuda") -> torch.Tensor:
+    """Response times (M,) for a single load ``rho`` and replication
+    ``k``, through ``_scan_sim`` (host-paced on the card).
+
+    Routed through the paper-default ``Scenario`` by default;
+    ``scenario`` overrides policy / service model / mix / overhead for
+    raw-response studies of the wider policy space (its ``dists``/``ks``
+    are ignored here — ``dist``/``k`` stay authoritative). ``(seed,
+    row)`` names the streams: those of seed row ``row`` of an unchunked
+    ``run(seed, ...)``, the port's counterpart of a split JAX key."""
+    dev = resolve_device(device)
+    variant = _default_scenario(dist, cfg, scenario).variant_for(k)
+    unit_gaps, servers, services = _sample_inputs(
+        seed, dist, cfg, k, variant.needs_shared_draw,
+        variant.needs_degradation_draw, row=row, device=dev)
+    rate = cfg.n_servers * torch.as_tensor(rho, dtype=torch.float32,
+                                           device=dev)
+    arrivals = _row_cumsum((unit_gaps / rate)[None])[0]
+    return _scan_sim(arrivals, servers[:, :k], services, cfg.n_servers,
+                     variant)
+
+
+def simulate_grid(seed: int, dist: ServiceDist, rhos, cfg: SimConfig,
+                  k: int = 1, *, scenario: Scenario | None = None,
+                  row: int = 0, device="cuda") -> torch.Tensor:
+    """Response times (B, M) for a grid of loads, one coupled sample path
+    (every load steps through the same draws, all B at once).
+    ``scenario``, ``row`` as in ``simulate``."""
+    dev = resolve_device(device)
+    variant = _default_scenario(dist, cfg, scenario).variant_for(k)
+    unit_gaps, servers, services = _sample_inputs(
+        seed, dist, cfg, k, variant.needs_shared_draw,
+        variant.needs_degradation_draw, row=row, device=dev)
+    rates = cfg.n_servers * torch.as_tensor(rhos, dtype=torch.float32,
+                                            device=dev)            # (B,)
+    arrivals = _row_cumsum(unit_gaps[None]) / rates[:, None]        # (B, M)
+    return _scan_sim(arrivals, servers[:, :k], services, cfg.n_servers,
+                     variant)
+
+
+def _warm(resp: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
+    return resp[..., int(cfg.n_arrivals * cfg.warmup_frac):]
+
+
 def summarize(resp: torch.Tensor, cfg: SimConfig,
               percentiles=DEFAULT_PERCENTILES) -> dict[str, torch.Tensor]:
     """Post-warmup mean + percentiles (linear interpolation) along the
     last axis of raw response times."""
-    r = resp[..., int(cfg.n_arrivals * cfg.warmup_frac):]
+    r = _warm(resp, cfg)
     out = {"mean": r.mean(dim=-1)}
     for p in percentiles:
         out[f"p{p:g}"] = torch.quantile(r, p / 100.0, dim=-1)
@@ -531,10 +674,7 @@ def run(seed: int, scenario: scenario_mod.ScenarioLike, rhos,
     from ``cfg``.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh= runs the sharded executor, which belongs to the port's "
-            "multi-device slice (repro.distributed.sweep_shard) and is not "
-            "ported yet")
+        raise NotImplementedError(MESH_NOT_PORTED)
     dev = resolve_device(device)
     dispatch.check_mode(kernel)
     dist_list, warmup_frac, variants = scenario_mod.combine(scenario)

@@ -1,9 +1,18 @@
-"""Device resolution and seeded generators shared by the port's entry
-points."""
+"""Device resolution, seeded generators and the card's published peaks,
+shared by the port's entry points, its roofline and ``chip_smoke.py``."""
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+# Published H100 SXM peaks (NVIDIA data sheet, dense rates at 700 W):
+# device memory rate, the float32 rate outside the tensor cores and the
+# bf16 and TF32 tensor-core rates. The bounds and roofline fractions of
+# the port are taken against these.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
+TF32_OPS_PER_S = 495e12
 
 
 def resolve_device(device="cuda") -> torch.device:

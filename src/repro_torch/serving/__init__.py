@@ -1,3 +1,3 @@
-"""Serving: replica engines and the hedged (redundant-dispatch)
-scheduler. The adaptive batched service, its controller, trace replay,
-telemetry and fault injection are still to port (ROADMAP queue 1)."""
+"""Serving: replica engines, the hedged (redundant-dispatch) scheduler,
+the adaptive batched service with its controller and telemetry, trace
+replay and fault injection."""

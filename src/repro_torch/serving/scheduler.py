@@ -87,9 +87,8 @@ class ReplicaWorker:
     accounting, updated as copies start/finish so ``utilization()`` is
     an O(1) read); an owner may additionally define
     ``_on_copy_done(worker, copy, won)`` to observe completions — the
-    batched service of the JAX package (``repro.serving.service``, not
-    ported yet) finalizes requests there instead of blocking a submitter
-    thread per request."""
+    batched service (``repro_torch.serving.service``) finalizes requests
+    there instead of blocking a submitter thread per request."""
 
     def __init__(self, engine, scheduler: "HedgedScheduler", name: str):
         self.engine = engine

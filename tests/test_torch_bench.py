@@ -1,12 +1,16 @@
 """The port's figure harness (``repro_torch.bench``) on the CPU at smoke
-sizes: every figure module returns well-formed rows with its JAX twin's
-row labels, in order, and the same derived keys; the cross-system
-figure's crossover order and parity row; fig12 through the chunked
-engine; and the harness with the port's new modules imports nothing of
-JAX, of ``repro`` or of ``benchmarks``."""
+sizes: every figure and benchmark module returns well-formed rows with
+its JAX twin's row labels, in order, and the same derived keys; the
+cross-system figure's crossover order and parity row; fig12 through the
+chunked engine; the benchmarks' acceptance rows (the twins of
+``tests/test_benchmarks_smoke.py``); the three examples at smoke size;
+and the harness with the port's new modules imports nothing of JAX, of
+``repro`` or of ``benchmarks``."""
+import functools
 import importlib
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -20,36 +24,203 @@ from repro_torch.bench.common import row_provenance
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-MODULES = ["fig1_queueing", "fig2_threshold", "fig3_random",
-           "fig4_overhead", "fig5_diskdb", "fig12_memcached",
-           "fig14_network", "fig15_dns", "fig_cross_system", "tab_tcp"]
+MODULES = ["sweep_engine", "fig_policy_space", "fig1_queueing",
+           "fig2_threshold", "fig3_random", "fig4_overhead", "fig5_diskdb",
+           "fig12_memcached", "fig14_network", "fig15_dns",
+           "fig_cross_system", "tab_tcp", "fig_fault_masking",
+           "serving_hedge", "roofline"]
 
 NEW_MODULES = (["repro_torch.bench.run", "repro_torch.bench.common",
                 "repro_torch.core.storage_sim", "repro_torch.core.dns",
                 "repro_torch.core.netsim", "repro_torch.core.analytic",
-                "repro_torch.core.scenario", "repro_torch.core.queueing"]
+                "repro_torch.core.scenario", "repro_torch.core.queueing",
+                "repro_torch.serving.metrics", "repro_torch.serving.controller",
+                "repro_torch.serving.faults", "repro_torch.serving.replay",
+                "repro_torch.serving.service",
+                "repro_torch.examples.queueing_explorer",
+                "repro_torch.examples.serve_hedged",
+                "repro_torch.examples.quickstart"]
                + [f"repro_torch.bench.{m}" for m in MODULES])
+
+# sweep_engine's streamed sweep is named by its size; the port's smoke
+# streams 20k arrivals (the plain version steps them one at a time on the
+# CPU), the JAX module's 200k
+STREAMED = re.compile(r"^sweep_engine/chunked_\d+k$")
 
 
 def _keys(derived: str) -> list[str]:
-    return [part.split("=", 1)[0] for part in derived.split(";")]
+    """The keys of a ``key=value;...`` field; a field of prose (no ``=``)
+    has none."""
+    return [part.split("=", 1)[0] for part in derived.split(";")
+            if "=" in part]
+
+
+def _label(name: str) -> str:
+    return "sweep_engine/chunked_<size>" if STREAMED.match(name) else name
+
+
+@functools.lru_cache(maxsize=None)
+def port_rows(name: str) -> tuple:
+    """The port module's smoke rows on the CPU (run once per process)."""
+    return tuple(importlib.import_module(f"repro_torch.bench.{name}").run(
+        smoke=True, device="cpu"))
+
+
+def derived_of(name: str) -> dict:
+    """{row label: its derived field as a dict} of a module's smoke rows."""
+    return {r[0]: dict(p.split("=", 1) for p in r[2].split(";") if "=" in p)
+            for r in port_rows(name)}
 
 
 @pytest.mark.parametrize("name", MODULES)
 def test_smoke_rows_match_the_jax_twin(name):
-    rows = importlib.import_module(f"repro_torch.bench.{name}").run(
-        smoke=True, device="cpu")
+    rows = port_rows(name)
     want = importlib.import_module(f"benchmarks.{name}").run(smoke=True)
-    assert [r[0] for r in rows] == [r[0] for r in want]
+    assert [_label(r[0]) for r in rows] == [_label(r[0]) for r in want]
     for row, ref in zip(rows, want):
         label, us, derived = row[:3]
         assert isinstance(label, str) and "ERROR" not in label
         assert float(us) >= 0.0 and isinstance(derived, str)
         assert _keys(derived) == _keys(ref[2]), (label, derived, ref[2])
+        assert ("=" in derived) == ("=" in ref[2]), (label, derived)
         mesh, scn, kernel = row_provenance(row)
         assert mesh is None
         assert kernel in (None, "off")  # resolved on the CPU, never "auto"
         json.dumps(scn)
+
+
+def test_harness_runs_the_modules_in_the_jax_order():
+    assert [m.__name__.split(".")[-1] for m in bench_run.MODULES] == MODULES
+
+
+def test_fig_policy_space_scenario_provenance():
+    by_name = {r[0]: r for r in port_rows("fig_policy_space")}
+    _, scn, kernel = row_provenance(by_name["fig_policy_space/iid"])
+    assert scn["policy"] == "REPLICATE_ALL" and scn["mix"] == 0.0
+    assert kernel == "off"
+    _, scn, _ = row_provenance(by_name["fig_policy_space/server_dep_mix1"])
+    assert scn["service_model"] == "SERVER_DEPENDENT" and scn["mix"] == 1.0
+    _, scn, _ = row_provenance(by_name["fig_policy_space/cancel"])
+    assert scn["policy"] == "CANCEL_ON_COMPLETE"
+    cross = derived_of("fig_policy_space")["fig_policy_space/crossover"]
+    assert cross["crossover"] == "True", cross
+
+
+def test_sweep_engine_rows():
+    d = derived_of("sweep_engine")
+    row = next(r for r in port_rows("sweep_engine")
+               if r[0] == "sweep_engine/kernel_on_vs_off")
+    assert row_provenance(row)[2] == "off"  # no kernel on the CPU
+    assert d["sweep_engine/kernel_on_vs_off"]["bit_identical"] == "True"
+    assert "speedup" in d["sweep_engine/kernel_on_vs_off"]
+    assert d["sweep_engine/pipeline_on_vs_off"]["bit_identical"] == "True"
+    # old path and fused engine read the same streams
+    assert float(d["sweep_engine/total"]["max_threshold_delta"]) <= 1e-3
+    for name, row in d.items():
+        if name.startswith("sweep_engine/chunked/"):
+            assert row["match"] == "True", (name, row)
+    assert "sweep_engine/chunked_20k" in d
+
+
+def test_sweep_engine_times_one_family_of_the_old_path(capsys):
+    from repro_torch.bench import sweep_engine
+    assert sweep_engine.main(["--smoke", "--device", "cpu"]) > 0
+    out = capsys.readouterr().out
+    assert "pareto 6" in out and "5000 arrivals" in out and "cpu" in out
+
+
+def test_fig_fault_masking_chaos_acceptance():
+    d = derived_of("fig_fault_masking")
+    chaos, engine = d["fig_fault_masking/chaos"], d["fig_fault_masking/engine"]
+    for key in ("hedged_completes_all", "hedged_p99_within_2x",
+                "retry_degrades_more", "masked"):
+        assert chaos[key] == "True", chaos
+    for key in ("retry_completes_all", "completion_order"):
+        assert engine[key] == "True", engine
+
+
+def test_serving_adaptive_vs_static_acceptance():
+    by_name = {r[0]: r for r in port_rows("serving_hedge")}
+    d = derived_of("serving_hedge")
+    assert d["serving/adaptive_vs_static"]["no_worse"] == "True"
+    assert d["serving/adaptive_vs_static"]["strictly_better"] == "True"
+    _, cmp, _ = row_provenance(by_name["serving/adaptive_vs_static"])
+    assert cmp["adaptive_no_worse"] is True
+    assert cmp["adaptive_strictly_better"] is True
+    assert cmp["controller"]["decisions"] > 0
+    json.dumps(cmp)
+    table = by_name["serving/policy_table"]
+    assert "best@0.10=" in table[2] and "best@0.75=" in table[2]
+    _, tab, kernel = row_provenance(table)
+    assert len(tab["k"]) == len(tab["delay"]) >= 2 and kernel == "off"
+    live = d["serving/batched_live"]
+    assert live["completions"] == live["n"] == "60"
+
+
+def test_roofline_rows_on_the_cards_peaks():
+    from repro_torch.bench import roofline
+    from repro_torch import device
+    d = derived_of("roofline")
+    for leg in ("scan", "kernel"):
+        row = d[f"roofline/cell_update/{leg}"]
+        assert 0 < float(row["peak_frac"]) <= 1
+        assert 0 < float(row["hbm_frac"]) <= 1
+        assert row["kernel"] == "off"
+    assert roofline.RIDGE == device.F32_OPS_PER_S / device.HBM_BYTES_PER_S
+    missing = next(r for r in port_rows("roofline")
+                   if r[0] == "roofline/dryrun_missing")
+    assert "item 15" in missing[2]
+
+
+def test_sharded_parts_name_the_multi_device_slice():
+    from repro_torch.bench import sweep_engine
+    from repro_torch.core import distributions as dists, queueing
+    from repro_torch.core.scenario import Scenario
+    from repro_torch.examples import queueing_explorer
+    assert "ROADMAP queue 1 item 13" in queueing.MESH_NOT_PORTED
+    with pytest.raises(NotImplementedError) as a:
+        sweep_engine.run(smoke=True, device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError) as b:
+        queueing_explorer.main(["--devices", "2", "--device", "cpu"])
+    with pytest.raises(NotImplementedError) as c:
+        queueing.run(0, Scenario.paper_default(dists.exponential()), [0.2],
+                     queueing.SimConfig(), mesh=object(), device="cpu")
+    assert str(a.value) == str(b.value) == str(c.value) == \
+        queueing.MESH_NOT_PORTED
+
+
+def test_queueing_explorer_smoke(capsys):
+    from repro_torch.examples import queueing_explorer
+    out = queueing_explorer.main(["--family", "pareto", "--param", "2.1",
+                                  "--k", "1", "2", "3", "--arrivals",
+                                  "3000", "--policy", "cancel_on_complete",
+                                  "--device", "cpu"])
+    assert out["summary"]["mean"].shape == (1, 4, 3)
+    assert 0.0 < out["threshold"] <= 0.5
+    text = capsys.readouterr().out
+    assert "policy = cancel_on_complete" in text and "kernel = off" in text
+
+
+def test_quickstart_smoke(capsys):
+    from repro_torch.examples import quickstart
+    out = quickstart.main(["--smoke", "--device", "cpu"])
+    assert abs(out["threshold"] - 1 / 3) < 0.1
+    assert out["gain"][0] > 0 > out["gain"][-1]  # helps low, hurts high
+    assert all(g > 0 for g in out["gain_cancel"])
+    assert out["fault_completed"][1] == 1.0  # retry completes all
+    assert len(out["crash_latency_s"]) == 20
+    assert out["controller"].decisions > 0
+    assert "adaptive serving" in capsys.readouterr().out
+
+
+def test_serve_hedged_smoke(capsys):
+    from repro_torch.examples import serve_hedged
+    out = serve_hedged.main(["--smoke", "--device", "cpu",
+                             "--requests", "8"])
+    for run in ("adaptive", "crash"):
+        assert out[run]["telemetry"]["completions"] == 8
+        assert out[run]["stats"]["failed"] == 0
+    assert "controller mean k by phase" in capsys.readouterr().out
 
 
 def test_fig_cross_system_crossover_row():

@@ -370,6 +370,40 @@ def test_smoke_model_kernels_match_plain(cuda_device):
     assert float((out["on"] - out["off"]).abs().max()) <= 0.21
 
 
+@pytest.mark.parametrize("run", ["adaptive", "crash"])
+def test_smoke_model_behind_the_batched_service(cuda_device, run):
+    """gemma2-2b's smoke model on the card behind ``BatchedHedgedService``
+    (4 replicas, one model; an ``AdaptiveController``, or static k=2 with
+    a replica crashed a third of the way in): every request completes
+    and its tokens equal a lone engine's (kernels on) for its prompt."""
+    from repro_torch.examples import serve_hedged
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.serving.controller import PolicyTable
+    from repro_torch.serving.engine import InferenceEngine
+    cfg, model, engines = serve_hedged.make_replicas("gemma2-2b", True, 4,
+                                                     cuda_device)
+    lone = InferenceEngine(cfg, model, max_len=64, name="lone",
+                           device=cuda_device)
+    mean_s = serve_hedged.mean_service_s(lone)
+    table = PolicyTable(rhos=[0.05, 0.3, 0.8], k=[1, 2, 2],
+                        delay=[0.0, 0.0, 0.5],
+                        tail=[[5.0, 2.0, 3.0], [6.0, 4.0, 3.5],
+                              [9.0, 30.0, 20.0]])
+    kw = ({"table": table} if run == "adaptive"
+          else {"k": 2, "crash": "r0", "seed": 1,
+                "shed_watermark": serve_hedged.STATIC_NO_SHED})
+    fa0 = fa_kernel.flash_attention_cuda.launches
+    da0 = da_kernel.decode_attention_cuda.launches
+    out = serve_hedged.live_replay(engines, n_requests=12, mean_s=mean_s,
+                                   vocab=cfg.vocab_size, **kw)
+    assert fa_kernel.flash_attention_cuda.launches > fa0
+    assert da_kernel.decode_attention_cuda.launches > da0
+    assert out["telemetry"]["completions"] == 12
+    assert out["stats"]["failed"] == 0
+    assert serve_hedged.check_tokens(lone, out["requests"]) == []
+
+
 # ---------------------------------------------------------------------------
 # recurrent kernels. ssd_scan sums float32 products in another order than
 # its plain version: the gate of tests/test_kernels.py, elementwise

@@ -1,7 +1,8 @@
 """The port's serving layer: the inference engine on the gemma2-2b smoke
 model against the JAX engine, the hedged scheduler's semantics on
-simulated replicas (twins of ``tests/test_serving.py``), the port's
-``estimate_hedge_delay`` and the ``launch.serve`` command line.
+simulated replicas (twins of ``tests/test_serving.py``, stalls from the
+port's ``FaultInjector``), the port's ``estimate_hedge_delay`` and the
+``launch.serve`` command line.
 
 Token parity: greedy tokens can only be held equal where the step's
 top-2 logit margin exceeds twice the logit tolerance of
@@ -31,6 +32,7 @@ from repro_torch.core.hedging import HedgePolicy, LoadMeter, LoadTracker
 from repro_torch.launch import serve
 from repro_torch.models import decode, lm
 from repro_torch.serving.engine import InferenceEngine, SimulatedEngine
+from repro_torch.serving.faults import FaultInjector
 from repro_torch.serving.scheduler import (HedgedScheduler, RetryPolicy,
                                            estimate_hedge_delay)
 
@@ -46,21 +48,6 @@ def make_sim(mean_s=0.01, tail_s=0.3, tail_p=0.0, seed=0):
         return mean_s * (0.5 + rng.random())
 
     return sampler
-
-
-class Stalled:
-    """A replica that hangs until its copy is cancelled (the request
-    finished elsewhere) or ``release`` is set; then it yields nothing."""
-
-    def __init__(self, name):
-        self.name = name
-        self.release = threading.Event()
-
-    def generate(self, prompt, max_new_tokens=2, check_cancel=None):
-        while not self.release.wait(0.005):
-            if check_cancel is not None and check_cancel():
-                return None
-        return None
 
 
 @pytest.fixture(scope="module")
@@ -183,9 +170,12 @@ class TestSchedulerRobustness:
         sched.shutdown()  # must be a no-op, not an error
 
     def test_retry_policy_resends_after_deadline(self):
-        stalled = Stalled("s0")
-        sched = HedgedScheduler(
-            [stalled, SimulatedEngine(lambda: 0.01, name="s1")], seed=3)
+        # first attempt lands on a stalled replica; the resend completes
+        inj = FaultInjector()
+        engines = [inj.wrap(SimulatedEngine(lambda: 0.01, name=f"s{i}"))
+                   for i in range(2)]
+        inj.stall("s0")
+        sched = HedgedScheduler(engines, seed=3)
         try:
             for _ in range(6):
                 req = sched.submit(
@@ -195,8 +185,8 @@ class TestSchedulerRobustness:
             assert sched.stats["hedged"] == 0  # the baseline never hedges
             assert sched.stats["retries"] >= 1
         finally:
-            stalled.release.set()
             sched.shutdown()
+            inj.heal("s0")
 
     def test_hedge_after_delay_defers_duplicates(self):
         engines = [SimulatedEngine(lambda: 0.005, name=f"s{i}")
@@ -242,10 +232,14 @@ class TestSchedulerRobustness:
             sched.shutdown()
 
     def test_remove_replica_requeues_pending_work(self):
-        stalled = Stalled("s0")
+        # fill a worker's queue while it is stalled, then remove it: the
+        # queued copies must land on the survivor and complete
+        inj = FaultInjector()
+        engines = [inj.wrap(SimulatedEngine(lambda: 0.005, name=f"s{i}"))
+                   for i in range(2)]
+        inj.stall("s0")
         sched = HedgedScheduler(
-            [stalled, SimulatedEngine(lambda: 0.005, name="s1")],
-            policy=HedgePolicy(max_k=2, threshold=1.1), seed=7)
+            engines, policy=HedgePolicy(max_k=2, threshold=1.1), seed=7)
         try:
             reqs, threads = [], []
 
@@ -264,8 +258,8 @@ class TestSchedulerRobustness:
             assert len(reqs) == 4
             assert all(r.completed_by == "s1" for r in reqs)
         finally:
-            stalled.release.set()
             sched.shutdown()
+            inj.heal("s0")
 
 
 class TestHedging:

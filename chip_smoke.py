@@ -2,7 +2,7 @@
 """Drive the PyTorch port (``src/repro_torch``) on one CUDA card.
 
     python3 chip_smoke.py              # every phase; needs one card
-    python3 chip_smoke.py --gates      # phases 1-3, 5-7, 9, 11, gates recorded
+    python3 chip_smoke.py --gates      # phases 1-3, 5-7, 9, 11, 15, gates recorded
     python3 chip_smoke.py --faults     # --gates on planted faults F9-F18
     python3 chip_smoke.py --faults F12 F13 F14   # only those (+ control)
 
@@ -132,18 +132,35 @@ nonzero:
      with replica r0 crashed a third of the way in: every request
      completes, its tokens equal a lone engine's, and both attention
      kernels launch in each run; the adaptive run once more under
-     ``torch.profiler`` for the device's idle share.
+     ``torch.profiler`` for the device's idle share;
+ 15. the sharded sweep executor (``repro_torch.distributed.sweep_shard``)
+     on phase 4's runs: (a) the fig2 sweep through
+     ``sweep_dists_sharded`` on 4 shards of the card and the 1M-arrival
+     run on 5 (12 cells padded to 15); (b) ``threshold_grid_batch`` under
+     ``use_sweep_mesh``; (c) two processes spawned with
+     ``torch.multiprocessing``, each adding two slots on cuda:0 through
+     ``multihost.initialize`` (gloo, a file store in a temporary
+     directory), running the fig2 sweep as a plain ``queueing.run`` —
+     each prints the rows it sampled against the whole block; (d)
+     sweep_engine's sharded part at its smoke size. Each equals phase 4's
+     unsharded kernel run bit for bit (mean, completed, every
+     percentile; the thresholds; ``bit_identical=True``), with
+     ``cell_update`` launched shards x chunks times in each; the walls of
+     (a) and (c) are printed beside phase 4's.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. A kernel's ``launches`` there are those
 of its main path's run (phase 4, 8, 10 or 12), ``cell_update``'s
-``figure_launches`` those of phase 13's modules, and ``serving_launches``
-(``cell_update`` and the attention kernels) phase 14's; ``hist_accum``,
+``figure_launches`` those of phase 13's modules, ``serving_launches``
+(``cell_update`` and the attention kernels) phase 14's, and
+``cell_update``'s ``sharded_launches`` phase 15's (the spawned
+processes' included); ``hist_accum``,
 which no main path launches, reads 0 and gives its launches in phase 2 as
 ``check_launches``. Needs CUDA and the repository's
 ``src/`` beside this script (or ``--src``); imports nothing of JAX or of
-``repro``. ``--gates`` records every gate of phases 2, 3, 5-7, 9 and 11
-(the worst multiple of its allowance; a bit gate as 0 or inf) instead of
+``repro``. ``--gates`` records every gate of phases 2, 3, 5-7, 9, 11 and
+15 (the worst multiple of its allowance; a bit gate as 0 or inf; phase
+15 runs its own unsharded references) instead of
 stopping at the first that fails, and prints them as its last line;
 ``--faults`` runs it on a copy of the package for each planted fault of
 ``FAULTS`` over the phases that hold its kernel, the unedited package
@@ -1654,6 +1671,222 @@ def serving_stack(dev) -> dict:
     return launches
 
 
+# Phase 15: the sharded sweep executor (``repro_torch.distributed
+# .sweep_shard``) on the card: phase 4's runs on several shards of one card,
+# in one process and in two, held bit for bit against phase 4's unsharded
+# kernel runs.
+SHARDS = 4
+PCT_SHARDS = 5  # the percentile run's 12 cells pad to 15: three pad cells
+PCT_QUANTILES = (50.0, 99.0, 99.9)
+SPAWN_LIMIT_S = 600.0
+
+
+def fig2_sweep_setup():
+    """Phase 4's Figure 2 sweep: (families, config, scenario) — 15
+    families, N=20, 50k arrivals, k in {1, 2}."""
+    from repro_torch.core import distributions as dists
+    from repro_torch.core import queueing
+    from repro_torch.core.scenario import Scenario
+
+    fams = ([dists.pareto(a) for a in (6.0, 3.0, 2.5, 2.2, 2.05)]
+            + [dists.weibull(k) for k in (2.0, 1.0, 0.7, 0.5, 0.4)]
+            + [dists.two_point(p) for p in (0.1, 0.5, 0.8, 0.95, 0.99)])
+    cfg = queueing.SimConfig(n_servers=20, n_arrivals=50_000)
+    return fams, cfg, Scenario.paper_default(tuple(fams), ks=(1, 2))
+
+
+def pct_run_setup():
+    """Phase 4's 1M-arrival percentile run: (loads, config, scenario)."""
+    from repro_torch.core import distributions as dists
+    from repro_torch.core import queueing
+    from repro_torch.core.scenario import Scenario
+
+    return ((0.2, 0.3, 0.4),
+            queueing.SimConfig(n_servers=20, n_arrivals=1_000_000),
+            Scenario.paper_default(dists.exponential(), ks=(1, 2)))
+
+
+def sharded_rank(rank: int, src: str, store: str, out_dir: str) -> None:
+    """One process of phase 15(c), spawned: two slots on cuda:0, joined
+    over gloo through the file store ``store``; the fig2 sweep as a plain
+    ``queueing.run`` with no ``mesh=`` (the default mesh spans both
+    processes), twice — the second run timed and its ``cell_update``
+    launches counted. Prints the rows it sampled against the whole block
+    and saves its summaries to ``out_dir``."""
+    sys.path.insert(0, src)
+    import torch
+
+    from repro_torch.core import chunkflow, queueing, threshold
+    from repro_torch.distributed import multihost
+    from repro_torch.kernels.cell_update import kernel as cell_kernel
+
+    multihost.initialize(f"file://{store}", 2, rank, local_device_count=2,
+                         device="cuda:0", timeout_s=300.0)
+    try:
+        _, cfg, scn = fig2_sweep_setup()
+        walls = []
+        for _ in range(2):
+            cell_kernel.cell_update_cuda.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = queueing.run(1, scn, threshold.default_rhos(), cfg,
+                               n_seeds=2, percentiles=(), chunk_size=CHUNK,
+                               device="cuda")
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        sampling = chunkflow.stats_provenance()
+        launches = cell_kernel.cell_update_cuda.launches
+        log(f"[15] (c) rank {rank} of 2, slots "
+            f"{multihost.registered_slots()}: walls {json.dumps(walls)} s "
+            f"(first run loads the library), cell_update launches "
+            f"{launches}, sampled {json.dumps(sampling)}")
+        torch.save({"mean": out["mean"].cpu(),
+                    "completed": out["completed"].cpu(), "walls": walls,
+                    "launches": launches, "sampling": sampling},
+                   Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        multihost.shutdown()
+
+
+def sharded_sweep(dev, src, ref: dict | None = None,
+                  raise_on_fail: bool = True) -> int:
+    """Phase 15: (a) the fig2 sweep on a 4-shard mesh of the card and the
+    1M-arrival run on a 5-shard one (3 pad cells); (b)
+    ``threshold_grid_batch`` under ``use_sweep_mesh``; (c) two spawned
+    processes x two slots on cuda:0 through ``multihost.initialize`` and a
+    plain ``queueing.run``; (d) sweep_engine's sharded part at its smoke
+    size. Each must equal the unsharded kernel run bit for bit (``ref``,
+    phase 4's outputs; ``--gates`` runs them here), with ``cell_update``
+    launched shards x chunks times and no plain fallback. Returns the
+    phase's launches (the spawned processes' included)."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as torch_mp
+
+    from repro_torch.bench import sweep_engine
+    from repro_torch.core import queueing, threshold
+    from repro_torch.distributed import sweep_shard
+    from repro_torch.kernels.cell_update import kernel as cell_kernel
+    from repro_torch.launch.mesh import make_sweep_mesh, use_sweep_mesh
+
+    t_phase = time.perf_counter()
+    fams, cfg, scn = fig2_sweep_setup()
+    p_rhos, p_cfg, p_scn = pct_run_setup()
+    rhos = threshold.default_rhos()
+    fig2_kw = dict(n_seeds=2, percentiles=(), chunk_size=CHUNK,
+                   device="cuda")
+    pct_kw = dict(n_seeds=2, percentiles=PCT_QUANTILES, chunk_size=CHUNK,
+                  device="cuda")
+    ths_kw = dict(n_seeds=2, chunk_size=CHUNK, device="cuda")
+    launches: dict[str, int] = {}
+    walls: dict[str, float] = {}
+
+    def counted(label: str, fn):
+        cell_kernel.cell_update_cuda.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+        launches[label] = cell_kernel.cell_update_cuda.launches
+        return out
+
+    def same(label: str, got: dict, want: dict, fields) -> None:
+        bad = [f for f in fields if not torch.equal(
+            got[f], want[f].to(got[f].device))]
+        bit_gate(f"phase 15 {label}", not bad,
+                 f"phase 15 {label}: sharded != unsharded in {bad}",
+                 raise_on_fail)
+
+    if ref is None:  # --gates: phase 4's unsharded kernel runs
+        ref = {"fig2": counted("unsharded fig2", lambda: queueing.run(
+                   1, scn, rhos, cfg, **fig2_kw)),
+               "pct": counted("unsharded pct", lambda: queueing.run(
+                   100, p_scn, p_rhos, p_cfg, **pct_kw)),
+               "ths": threshold.threshold_grid_batch(1, fams, cfg,
+                                                     **ths_kw)}
+        ref["walls"] = {key: [walls.pop(f"unsharded {key}")]
+                        for key in ("fig2", "pct")}
+        launches.clear()
+    mesh = make_sweep_mesh(devices=(dev,) * SHARDS)
+    pct_mesh = make_sweep_mesh(devices=(dev,) * PCT_SHARDS)
+    pct_fields = ("mean", "completed") + tuple(f"p{q:g}"
+                                               for q in PCT_QUANTILES)
+
+    # (a) one process, the main path's two runs on shards of the card
+    got = counted("(a) fig2", lambda: sweep_shard.sweep_dists_sharded(
+        1, fams, rhos, cfg, ks=(1, 2), mesh=mesh, kernel="auto", **fig2_kw))
+    same("(a) fig2 sweep", got, ref["fig2"], ("mean", "completed"))
+    got = counted("(a) pct", lambda: queueing.run(
+        100, p_scn, p_rhos, p_cfg, mesh=pct_mesh, kernel="auto", **pct_kw))
+    same("(a) 1M-arrival run", got, ref["pct"], pct_fields)
+
+    # (b) the estimators under the ambient mesh
+    with use_sweep_mesh(mesh):
+        ths = counted("(b)", lambda: threshold.threshold_grid_batch(
+            1, fams, cfg, **ths_kw))
+    bit_gate("phase 15 (b) thresholds", ths == ref["ths"],
+             f"phase 15 (b): thresholds {ths} != {ref['ths']}",
+             raise_on_fail)
+
+    # (c) two processes x two slots on cuda:0, over gloo
+    ctx = torch_mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=sharded_rank,
+                             args=(r, str(src), f"{tmp}/store", tmp))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(timeout=max(SPAWN_LIMIT_S - (time.perf_counter()
+                                                    - t0), 1.0))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=30.0)
+        walls["(c) spawn to exit"] = time.perf_counter() - t0
+        codes = [p.exitcode for p in procs]
+        ok = codes == [0, 0]
+        bit_gate("phase 15 (c) processes", ok,
+                 f"phase 15 (c): the processes exited with {codes}",
+                 raise_on_fail)
+        if ok:
+            ranks = [torch.load(Path(tmp) / f"rank{r}.pt") for r in (0, 1)]
+            same("(c) rank 0", ranks[0], ref["fig2"], ("mean", "completed"))
+            launches["(c)"] = sum(r["launches"] for r in ranks)
+            walls["(c) rank 0 run"] = ranks[0]["walls"][-1]
+
+    # (d) sweep_engine's sharded part at its smoke size
+    rows = counted("(d)", lambda: sweep_engine._sharded_rows(
+        sweep_engine._cfg(True), mesh, True, "auto", dev))
+    for row in rows:
+        bit_gate(f"phase 15 (d) {row[0]}",
+                 parse_derived(row[2]).get("bit_identical") == "True",
+                 f"phase 15 (d): {row[0]} {row[2]}", raise_on_fail)
+        log(f"[15] (d) {row[0]}: {row[2]}")
+
+    chunks = math.ceil(cfg.n_arrivals / CHUNK)
+    smoke_chunks = math.ceil(sweep_engine._cfg(True).n_arrivals / CHUNK)
+    want = {"(a) fig2": SHARDS * chunks,
+            "(a) pct": PCT_SHARDS * math.ceil(p_cfg.n_arrivals / CHUNK),
+            "(b)": SHARDS * chunks, "(c)": 2 * 2 * chunks,
+            # each of the two rows: the unsharded run, then the sharded
+            "(d)": 2 * (1 + SHARDS) * smoke_chunks}
+    bit_gate("phase 15 launches", launches == want,
+             f"phase 15: cell_update launched {launches}, not shards x "
+             f"chunks {want}", raise_on_fail)
+    log(f"[15] cell_update launches {json.dumps(launches)} (shards x "
+        f"chunks: {json.dumps(want)}); walls {json.dumps(walls)} s beside "
+        f"the unsharded runs' {json.dumps(ref['walls'])} s (phase 4, "
+        f"pipeline off); sharded == unsharded bit for bit in (a)-(d)")
+    log(f"[15] phase 15: {time.perf_counter() - t_phase}s")
+    return sum(launches.values())
+
+
 # Planted faults (``--faults``): each edits one kernel source of a copy of
 # the package, as (source, text found once, its replacement, what it does).
 FAULTS = {
@@ -1727,7 +1960,7 @@ FAULTS = {
 }
 # phases of --gates that hold each source's kernel
 FAULT_PHASES = {"cell_update": [2, 3], "ssd_scan": [9], "rglru_scan": [11]}
-GATE_PHASES = [2, 3, 5, 6, 7, 9, 11]
+GATE_PHASES = [2, 3, 5, 6, 7, 9, 11, 15]
 
 
 def sass_counts(lib_path) -> dict:
@@ -1844,7 +2077,7 @@ def main(argv=None) -> int:
                                  "CUDA card (see the module's docstring).")
     ap.add_argument("--gates", nargs="*", type=int, metavar="PHASE",
                     help="run phase 1 and the gates of phases 2, 3, 5, 6, "
-                         "7, 9 and 11 (or of the phases named), recording "
+                         "7, 9, 11 and 15 (or of the phases named), recording "
                          "every gate instead of stopping at the first that "
                          "fails; the last line is the gates' worst "
                          "multiples")
@@ -1941,6 +2174,12 @@ def main(argv=None) -> int:
                 except RuntimeError as exc:  # a launch that died
                     record_gate(f"phase {phase} launch", math.inf)
                     log(f"    gate failed: {exc}")
+        if 15 in phases:
+            try:
+                sharded_sweep(dev, src, raise_on_fail=False)
+            except RuntimeError as exc:  # a launch that died
+                record_gate("phase 15 launch", math.inf)
+                log(f"    gate failed: {exc}")
         print(json.dumps({"gates": GATES}), flush=True)
         return 0
 
@@ -1957,11 +2196,7 @@ def main(argv=None) -> int:
 
     # timing at the main path's chunk shapes: the fig2 sweep's first
     # chunk, sampled and laid out by the engine itself
-    fams = ([dists.pareto(a) for a in (6.0, 3.0, 2.5, 2.2, 2.05)]
-            + [dists.weibull(k) for k in (2.0, 1.0, 0.7, 0.5, 0.4)]
-            + [dists.two_point(p) for p in (0.1, 0.5, 0.8, 0.95, 0.99)])
-    fig2_cfg = queueing.SimConfig(n_servers=20, n_arrivals=50_000)
-    fig2_scn = Scenario.paper_default(tuple(fams), ks=(1, 2))
+    fams, fig2_cfg, fig2_scn = fig2_sweep_setup()
     n_rows = len(fams) * 2
     grid = queueing._engine_grid(n_rows, threshold.default_rhos(), fig2_cfg,
                                  fig2_scn.variants(), dev)
@@ -2003,9 +2238,7 @@ def main(argv=None) -> int:
         f"plain {plain_cell:.1f} ms, bound {cell_bound:.5f} ms ({cell_by})")
 
     # the percentile run's chunk: 12 cells, with the sketch
-    p_rhos = (0.2, 0.3, 0.4)
-    p_cfg = queueing.SimConfig(n_servers=20, n_arrivals=1_000_000)
-    p_scn = Scenario.paper_default(dists.exponential(), ks=(1, 2))
+    p_rhos, p_cfg, p_scn = pct_run_setup()
     nb = hist_ops.DEFAULT_BINS
     pgrid = queueing._engine_grid(2, p_rhos, p_cfg, p_scn.variants(), dev)
     gaps, servers, services = queueing.make_sampler(
@@ -2071,9 +2304,8 @@ def main(argv=None) -> int:
     fig2_launches = cell_kernel.cell_update_cuda.launches
     t0 = time.perf_counter()
     out = queueing.run(100, Scenario.paper_default(dists.exponential()),
-                       p_rhos, p_cfg, n_seeds=2,
-                       percentiles=(50.0, 99.0, 99.9), chunk_size=CHUNK,
-                       device="cuda")
+                       p_rhos, p_cfg, n_seeds=2, percentiles=PCT_QUANTILES,
+                       chunk_size=CHUNK, device="cuda")
     torch.cuda.synchronize()
     t_pct = time.perf_counter() - t0
     launches = {"cell_update": cell_kernel.cell_update_cuda.launches,
@@ -2143,11 +2375,13 @@ def main(argv=None) -> int:
 
     def pct_run(pipeline):
         return queueing.run(100, p_scn, p_rhos, p_cfg, n_seeds=2,
-                            percentiles=(50.0, 99.0, 99.9), chunk_size=CHUNK,
+                            percentiles=PCT_QUANTILES, chunk_size=CHUNK,
                             pipeline=pipeline, device="cuda")
 
-    for label, fn in (("fig2 sweep (1440 cells)", fig2_sweep),
-                      ("1M-arrival run (12 cells)", pct_run)):
+    # phase 15 holds its sharded runs against these unsharded kernel runs
+    phase4 = {"ths": ths, "walls": {}}
+    for run, label, fn in (("fig2", "fig2 sweep (1440 cells)", fig2_sweep),
+                           ("pct", "1M-arrival run (12 cells)", pct_run)):
         walls: dict[str, list[float]] = {"on": [], "off": []}
         outs = {}
         for mode in ("on", "off", "off", "on"):
@@ -2164,6 +2398,7 @@ def main(argv=None) -> int:
         log(f"[4] pipeline {label}: on {json.dumps(walls['on'])} s, off "
             f"{json.dumps(walls['off'])} s (order on, off, off, on; "
             f"summaries bit-equal)")
+        phase4[run], phase4["walls"][run] = outs["off"], walls["off"]
         for mode in ("on", "off"):
             tr = traced(lambda: fn(mode))
             log(f"[4] trace {label}, pipeline {mode}: {json.dumps(tr)}")
@@ -2257,6 +2492,9 @@ def main(argv=None) -> int:
 
     # --------------------------------------------------------------- 14
     serving_launches = serving_stack(dev)
+
+    # --------------------------------------------------------------- 15
+    sharded_launches = sharded_sweep(dev, src, phase4)
     check_imports()
 
     # ----------------------------------------------------------- output
@@ -2269,6 +2507,7 @@ def main(argv=None) -> int:
          "launches": launches["cell_update"],
          "figure_launches": figure_launches,
          "serving_launches": serving_launches["cell_update"],
+         "sharded_launches": sharded_launches,
          "max_abs_err": errs["cell_update"], "ms": ms_cell,
          "plain_ms": plain_cell, "bound_ms": cell_bound,
          "bound_by": cell_by, "library_ms": None},

@@ -5,7 +5,9 @@ NVIDIA H100 through hand-written CUDA kernels:
 
   * the sweep engine (``core.queueing.run``) and threshold estimators
     (``core.threshold``), through ``kernels.cell_update`` and
-    ``kernels.hist_sketch``;
+    ``kernels.hist_sketch``, on one device or sharded over a ``"cells"``
+    mesh of slots in one process or several (``launch.mesh``,
+    ``distributed.sweep_shard``, ``distributed.multihost``);
   * hedged LM serving of gemma2-2b, mamba2-370m and recurrentgemma-9b
     (``launch.serve``: ``serving.engine`` replicas behind
     ``serving.scheduler``, the model in ``models``), through

@@ -2,9 +2,9 @@
 
 Rows may append provenance elements past the 3-tuple core:
 
-  * 4th — the mesh shape tuple the row executed under (always ``None``:
-    the port's sharded executor is not written yet); ``run.py`` records
-    it as the row's ``mesh`` field in the JSON artifact.
+  * 4th — the mesh shape tuple the row executed under (``None`` /
+    absent for unsharded rows); ``run.py`` records it as the row's
+    ``mesh`` field in the JSON artifact.
   * 5th — the row's scenario provenance (``repro_torch.core.scenario
     .provenance``: policy, service model, mix, ks, overhead, dists) or
     ``None``; ``run.py`` records it as the row's ``scenario`` field.
@@ -13,6 +13,11 @@ Rows may append provenance elements past the 3-tuple core:
     with no engine call; ``run.py`` records it as the row's ``kernel``
     field so trajectories separate kernel-path from plain-path
     measurements.
+  * 7th — the row's sampling/pipeline provenance
+    (``repro_torch.core.chunkflow.stats_provenance()``: pipeline on/off,
+    per-process sampled rows and bytes vs the full block, locality
+    factor, process count) or ``None``; ``run.py`` records it as the
+    row's ``sampling`` field.
 """
 from __future__ import annotations
 
@@ -21,7 +26,7 @@ from typing import Any, Callable, Optional, Union
 
 import torch
 
-Row = tuple  # (name, us, derived[, mesh[, scenario[, kernel]]])
+Row = tuple  # (name, us, derived[, mesh[, scenario[, kernel[, sampling]]]])
 
 
 def timed(fn: Callable[[], Any]) -> tuple[Any, float]:
@@ -42,6 +47,11 @@ def row_provenance(row: Row) -> tuple[Optional[list], Union[dict, list,
     scn = row[4] if len(row) > 4 else None
     kernel = row[5] if len(row) > 5 else None
     return mesh, scn, kernel
+
+
+def row_sampling(row: Row) -> Optional[dict]:
+    """The row's sampling provenance (its 7th element), or ``None``."""
+    return row[6] if len(row) > 6 else None
 
 
 def emit(rows: list[Row]) -> None:

@@ -27,7 +27,8 @@ def _n_samples(smoke: bool) -> int:
     return 20_000 if smoke else 400_000
 
 
-def compute(smoke: bool = False, kernel: str = "auto", device="cuda"):
+def compute(smoke: bool = False, kernel: str = "auto", device="cuda",
+            mesh=None):
     """({"fits": one EmpiricalDist per k, "summaries": the run's
     summaries}, microseconds of fits and run)."""
     pop = dns.DNSPopulation()
@@ -41,19 +42,21 @@ def compute(smoke: bool = False, kernel: str = "auto", device="cuda"):
         scns = tuple(Scenario(dists=f, ks=(1,)) for f in fits)
         cfg = queueing.SimConfig(n_servers=10,
                                  n_arrivals=4_000 if smoke else 40_000)
-        s = queueing.run(7, scns, (0.05,), cfg, n_seeds=1, kernel=kernel,
-                         device=device)
+        s = queueing.run(7, scns, (0.05,), cfg, n_seeds=1, mesh=mesh,
+                         kernel=kernel, device=device)
         return {"fits": fits, "summaries": s}
 
     return timed(work)
 
 
-def run(smoke: bool = False, kernel: str = "auto", device="cuda") -> list[Row]:
+def run(smoke: bool = False, kernel: str = "auto", device="cuda",
+        mesh=None) -> list[Row]:
     rows: list[Row] = []
     pop = dns.DNSPopulation()
     resolved = dispatch.resolve(kernel, device)
+    mesh_shape = mesh.shape if mesh is not None else None
     n = _n_samples(smoke)
-    out, us = compute(smoke, kernel, device)
+    out, us = compute(smoke, kernel, device, mesh)
     fits, s = out["fits"], out["summaries"]
     means = [float(s["mean"][0, 0, i]) * fits[i].scale
              for i in range(len(KS))]  # ms, one per k: variant i == fit i
@@ -77,7 +80,7 @@ def run(smoke: bool = False, kernel: str = "auto", device="cuda") -> list[Row]:
                      f"frac1500_reduction={tail_ratio(i, 1500.0)};"
                      f"mean_reduction={mean_red:.0f}%;"
                      f"p99_reduction={p99_red:.0f}%",
-                     None, scn_mod.provenance(Scenario(dists=fits[i],
+                     mesh_shape, scn_mod.provenance(Scenario(dists=fits[i],
                                                        ks=(1,))),
                      resolved))
     # fig17: marginal savings straight off the fitted per-k means (each

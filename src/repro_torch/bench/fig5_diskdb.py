@@ -38,7 +38,8 @@ def _rhos(smoke: bool) -> np.ndarray:
     return np.linspace(0.05, 0.495, 8 if smoke else 24, dtype=np.float32)
 
 
-def compute(smoke: bool = False, kernel: str = "auto", device="cuda"):
+def compute(smoke: bool = False, kernel: str = "auto", device="cuda",
+            mesh=None):
     """({"fits": (dist, ms_scale, overhead) per variant, "summaries": the
     run's summaries, "gain": (B, n_variants)}, microseconds of the two
     engine calls)."""
@@ -54,19 +55,21 @@ def compute(smoke: bool = False, kernel: str = "auto", device="cuda"):
         # ONE mixed-grid sweep (percentiles) + ONE mixed-grid gain curve:
         # every storage variant is a dist_id coordinate of the same
         # engine call.
-        s = queueing.run(4, scns, LOADS, cfg, n_seeds=1, kernel=kernel,
-                         device=device)
+        s = queueing.run(4, scns, LOADS, cfg, n_seeds=1, mesh=mesh,
+                         kernel=kernel, device=device)
         g = threshold.scenario_gain(4, scns, _rhos(smoke), cfg, n_seeds=1,
-                                    kernel=kernel, device=device)
+                                    mesh=mesh, kernel=kernel, device=device)
         return s, g
 
     (s, g), us = timed(work)
     return {"fits": fits, "summaries": s, "gain": g}, us
 
 
-def run(smoke: bool = False, kernel: str = "auto", device="cuda") -> list[Row]:
+def run(smoke: bool = False, kernel: str = "auto", device="cuda",
+        mesh=None) -> list[Row]:
     resolved = dispatch.resolve(kernel, device)
-    out, us = compute(smoke, kernel, device)
+    mesh_shape = mesh.shape if mesh is not None else None
+    out, us = compute(smoke, kernel, device, mesh)
     fits, s, g = out["fits"], out["summaries"], out["gain"]
     rhos = _rhos(smoke)
     rows: list[Row] = []
@@ -85,5 +88,5 @@ def run(smoke: bool = False, kernel: str = "auto", device="cuda") -> list[Row]:
                      f"p99@0.2={p99_1:.1f}->{p99_2:.1f}ms;"
                      f"p999@0.1_ratio={p999_1 / max(p999_2, 1e-9):.2f}x;"
                      f"overhead_frac={ovh:.3f}",
-                     None, scn_mod.provenance(scn), resolved))
+                     mesh_shape, scn_mod.provenance(scn), resolved))
     return rows

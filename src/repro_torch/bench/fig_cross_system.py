@@ -56,7 +56,8 @@ def _scenarios(fits):
                  for dist, _, ovh in fits)
 
 
-def compute(smoke: bool = False, kernel: str = "auto", device="cuda"):
+def compute(smoke: bool = False, kernel: str = "auto", device="cuda",
+            mesh=None):
     """({"fits": (dist, ms_scale, overhead) per system, "gain": (B, 3)},
     microseconds of the engine call)."""
     fits = _fits(device)
@@ -64,15 +65,17 @@ def compute(smoke: bool = False, kernel: str = "auto", device="cuda"):
                              n_arrivals=4_000 if smoke else 60_000)
     # ONE engine call, three systems: gain matrix (B, 3)
     g, us = timed(lambda: threshold.scenario_gain(
-        8, _scenarios(fits), _rhos(smoke), cfg, n_seeds=2, kernel=kernel,
-        device=device))
+        8, _scenarios(fits), _rhos(smoke), cfg, n_seeds=2, mesh=mesh,
+        kernel=kernel, device=device))
     return {"fits": fits, "gain": g}, us
 
 
-def run(smoke: bool = False, kernel: str = "auto", device="cuda") -> list[Row]:
+def run(smoke: bool = False, kernel: str = "auto", device="cuda",
+        mesh=None) -> list[Row]:
     rows: list[Row] = []
     resolved = dispatch.resolve(kernel, device)
-    out, us = compute(smoke, kernel, device)
+    mesh_shape = mesh.shape if mesh is not None else None
+    out, us = compute(smoke, kernel, device, mesh)
     fits, g = out["fits"], out["gain"]
     scns, rhos = _scenarios(fits), _rhos(smoke)
     crossings = {}
@@ -87,14 +90,14 @@ def run(smoke: bool = False, kernel: str = "auto", device="cuda") -> list[Row]:
                      f"gain@{float(rhos[-1]):.2f}={g_hi:.4f}ms;"
                      f"mean_service_ms={ms_scale:.3f};"
                      f"overhead_frac={ovh:.3f}",
-                     None, scn_mod.provenance(scns[i]), resolved))
+                     mesh_shape, scn_mod.provenance(scns[i]), resolved))
     order = sorted(crossings, key=crossings.get, reverse=True)
     rows.append(("fig_cross_system/crossover", us,
                  ";".join(f"{n}={crossings[n]:.3f}" for n in order)
                  + f";order={'>'.join(order)};"
                  f"rho_grid=[{float(rhos[0]):.2f},{float(rhos[-1]):.2f}]"
                  f"x{rhos.shape[0]}",
-                 None, scn_mod.provenance(scns), resolved))
+                 mesh_shape, scn_mod.provenance(scns), resolved))
 
     # plain-vs-kernel parity on the mixed grid; smoke-sized — parity is
     # a contract check, not a timing row.

@@ -65,14 +65,15 @@ def _engine_grid() -> list[tuple[str, Scenario]]:
     return entries
 
 
-def compute(smoke: bool = False, kernel: str = "auto", device="cuda"):
+def compute(smoke: bool = False, kernel: str = "auto", device="cuda",
+            mesh=None):
     """(the engine grid's summaries, microseconds)."""
     cfg = (queueing.SimConfig(n_servers=10, n_arrivals=6_000) if smoke
            else CFG)
     return timed(lambda: queueing.run(
         17, tuple(s for _, s in _engine_grid()), (RHO,), cfg,
         n_seeds=2 if smoke else 3, percentiles=(99.0, 99.9),
-        chunk_size=CHUNK, kernel=kernel, device=device))
+        chunk_size=CHUNK, mesh=mesh, kernel=kernel, device=device))
 
 
 def _serve_trace(n_reqs: int, retry: bool, crash: bool,
@@ -113,14 +114,15 @@ def _serve_trace(n_reqs: int, retry: bool, crash: bool,
             "hedged": sched.stats["hedged"]}
 
 
-def run(smoke: bool = False, kernel: str = "auto",
-        device="cuda") -> list[Row]:
+def run(smoke: bool = False, kernel: str = "auto", device="cuda",
+        mesh=None) -> list[Row]:
     rows: list[Row] = []
     resolved = dispatch.resolve(kernel, device)
+    mesh_shape = mesh.shape if mesh is not None else None
 
     # ---- engine: (fault rate x policy) in ONE mixed-grid run --------
     entries = _engine_grid()
-    out, total_us = compute(smoke, kernel, device)
+    out, total_us = compute(smoke, kernel, device, mesh)
     n_seeds = out["mean"].shape[0]
     stats = {s: out[s].mean(dim=0)[0].cpu().numpy() for s in
              ("mean", "p99", "p99.9", "completed")}
@@ -134,7 +136,7 @@ def run(smoke: bool = False, kernel: str = "auto",
             f"mean={stats['mean'][j]:.4f};p99={stats['p99'][j]:.4f};"
             f"p999={stats['p99.9'][j]:.4f};"
             f"completed_frac={fracs[name]:.4f}",
-            None, scn_mod.provenance(scn), resolved))
+            mesh_shape, scn_mod.provenance(scn), resolved))
     fx = f"f{FAULT_RATES[-1]:g}"
     rows.append((
         "fig_fault_masking/engine", total_us,
@@ -145,7 +147,7 @@ def run(smoke: bool = False, kernel: str = "auto",
         f"{fracs[f'retry@{fx}'] >= fracs[f'hedge@{fx}'] > fracs[f'bare@{fx}']};"
         f"retry_completes_all={fracs[f'retry@{fx}'] == 1.0};"
         f"scenarios={len(entries)};seeds={n_seeds}",
-        None, None, resolved))
+        mesh_shape, None, resolved))
 
     # ---- serving: 25% of replicas crashed mid-trace -----------------
     n_reqs = 16 if smoke else N_REQS

@@ -46,21 +46,23 @@ def _scenarios() -> list[tuple[str, Scenario]]:
     return entries
 
 
-def compute(smoke: bool = False, kernel: str = "auto", device="cuda"):
+def compute(smoke: bool = False, kernel: str = "auto", device="cuda",
+            mesh=None):
     """(the mixed grid's summaries, microseconds)."""
     cfg = (queueing.SimConfig(n_servers=20, n_arrivals=6_000) if smoke
            else CFG)
     return timed(lambda: queueing.run(
         2, tuple(s for _, s in _scenarios()), RHOS, cfg,
         n_seeds=2 if smoke else 3, percentiles=(), chunk_size=CHUNK,
-        kernel=kernel, device=device))
+        mesh=mesh, kernel=kernel, device=device))
 
 
-def run(smoke: bool = False, kernel: str = "auto",
-        device="cuda") -> list[Row]:
+def run(smoke: bool = False, kernel: str = "auto", device="cuda",
+        mesh=None) -> list[Row]:
     resolved = dispatch.resolve(kernel, device)
+    mesh_shape = mesh.shape if mesh is not None else None
     entries = _scenarios()
-    out, total_us = compute(smoke, kernel, device)
+    out, total_us = compute(smoke, kernel, device, mesh)
     n_seeds = out["mean"].shape[0]
     m = out["mean"].mean(dim=0)  # (B, 2 * n_scenarios)
 
@@ -72,7 +74,8 @@ def run(smoke: bool = False, kernel: str = "auto",
         gains[name] = g
         derived = ";".join(f"gain@rho{r:g}={v:+.4f}" for r, v in g.items())
         rows.append((f"fig_policy_space/{name}", total_us / len(entries),
-                     derived, None, scn_mod.provenance(scn), resolved))
+                     derived, mesh_shape, scn_mod.provenance(scn),
+                     resolved))
 
     # the headline: between the thresholds, IID helps and
     # server-dependence flips the sign; cancellation helps everywhere.
@@ -84,5 +87,5 @@ def run(smoke: bool = False, kernel: str = "auto",
                  f"cancel_helps_everywhere="
                  f"{all(v > 0 for v in gains['cancel'].values())};"
                  f"scenarios={len(entries)};seeds={n_seeds}",
-                 None, None, resolved))
+                 mesh_shape, None, resolved))
     return rows

@@ -9,9 +9,11 @@ table/figure (the twins of the JAX package's ``benchmarks/``).
 Prints ``name,us_per_call,derived`` CSV and, on standard error, each
 module's wall seconds. ``--only`` is a substring filter on module names
 (repeatable). ``--smoke`` runs every module at tiny sizes. ``--json
-PATH`` also writes the rows as a JSON list; each row records its
-``mesh`` (always null: the sharded executor is not ported), the
-``scenario`` it measured (``repro_torch.core.scenario.provenance``;
+PATH`` also writes the rows as a JSON list; each row records the
+``mesh`` shape it ran under (null for unsharded rows), its ``sampling``
+provenance (``repro_torch.core.chunkflow.stats_provenance``: pipeline
+on/off, this process's sampled rows and bytes against the full block;
+null for rows that do not carry it), the ``scenario`` it measured (``repro_torch.core.scenario.provenance``;
 null for rows that are not a queueing-scenario measurement), the
 RESOLVED cell-update ``kernel`` mode (``on`` / ``off``; null for rows
 with no engine call), ``backend: "torch"``, the ``device`` and the
@@ -19,6 +21,11 @@ card's name and power limit (``gpu``, as ``nvidia-smi
 --query-gpu=name,power.limit`` gives them; ``"cpu"`` on the CPU).
 ``--kernel`` picks the engine's mode (``auto``: the CUDA kernel on the
 card). ``--device`` defaults to ``cuda`` and raises where there is none.
+``--devices N`` builds an N-slot ``"cells"`` sweep mesh and hands it to
+the mesh-aware modules (``sweep_engine``, which then adds its sharded
+rows, and fig5, fig12, fig15, fig_cross_system, fig_policy_space,
+fig_fault_masking): N CPU slots with ``--device cpu``; on the card N
+clamped to the visible cards (``launch.mesh.requested_mesh``).
 A module that fails raises: the harness has no fallback.
 
 ``main(argv)`` returns ``{"rows": [...], "walls": {module: seconds}}``.
@@ -37,8 +44,9 @@ from repro_torch.bench import (fig1_queueing, fig2_threshold, fig3_random,
                                fig14_network, fig15_dns, fig_cross_system,
                                fig_fault_masking, fig_policy_space, roofline,
                                serving_hedge, sweep_engine, tab_tcp)
-from repro_torch.bench.common import row_provenance
+from repro_torch.bench.common import row_provenance, row_sampling
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import requested_mesh
 
 # the JAX harness's order (``benchmarks/run.py``)
 MODULES = (sweep_engine, fig_policy_space, fig1_queueing, fig2_threshold,
@@ -71,8 +79,12 @@ def main(argv: list[str] | None = None) -> dict:
                     help="cell-update kernel mode of the engine figures "
                          "(auto: the kernel on the card)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--devices", type=int, default=None, metavar="N",
+                    help="run mesh-aware modules through the sharded "
+                         "executor on an N-slot 'cells' mesh")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
+    mesh = requested_mesh(args.devices, dev) if args.devices else None
     provenance = {"backend": "torch", "device": dev.type,
                   "gpu": card_line(dev)}
 
@@ -84,8 +96,11 @@ def main(argv: list[str] | None = None) -> dict:
         if args.only and not any(o in name for o in args.only):
             continue
         kwargs = {"smoke": args.smoke, "device": args.device}
-        if "kernel" in inspect.signature(mod.run).parameters:
+        params = inspect.signature(mod.run).parameters
+        if "kernel" in params:
             kwargs["kernel"] = args.kernel
+        if mesh is not None and "mesh" in params:
+            kwargs["mesh"] = mesh
         t0 = time.perf_counter()
         rows = mod.run(**kwargs)
         walls[name] = time.perf_counter() - t0
@@ -96,7 +111,7 @@ def main(argv: list[str] | None = None) -> dict:
             collected.append({"name": row_name, "us_per_call": round(us, 1),
                               "derived": derived, "mesh": row_mesh,
                               "scenario": row_scenario, "kernel": row_kernel,
-                              **provenance})
+                              "sampling": row_sampling(row), **provenance})
         print(f"# {name} {walls[name]:.2f}s", file=sys.stderr, flush=True)
     print(f"# total {sum(walls.values()):.1f}s", file=sys.stderr)
     if args.json:

@@ -18,9 +18,14 @@ clock for both, and the randomness-input footprint each path holds (the
 chunked path's is independent of ``n_arrivals``). Finishes with a
 streamed sweep of 2M arrivals.
 
-Part 3 — the sharded cell-plan executor (``mesh``) is not ported yet
-(ROADMAP queue 1 item 13): ``run(mesh=...)`` raises, as
-``queueing.run(mesh=...)`` does.
+Part 3 — sharded cell-plan execution (``mesh`` argument, wired through
+``run.py --devices``): the same chunked sweep and the Figure 2 threshold
+batch run through ``repro_torch.distributed.sweep_shard`` on a 1-D
+"cells" mesh, recording whether the bit-identity contract against the
+unsharded engine held (``bit_identical=``) and carrying the mesh shape
+(and the sweep's sampling provenance) as JSON provenance. The contract
+itself is held by the tests and ``chip_smoke.py``, not by the benchmark:
+a violation still produces rows.
 
 Part 4 — ``cell_update`` kernel on vs off: the same chunked sweep through
 the plain version (``kernel="off"``) and through the kernel (the
@@ -29,7 +34,9 @@ where there is no kernel, both legs are the plain version.
 
 Part 5 — sampling pipeline on vs off (``queueing.run``'s ``pipeline``):
 the large streamed sweep with serial per-chunk sampling vs the producer
-thread, wall clock both ways, bit-identity recorded.
+thread, wall clock both ways, bit-identity recorded, and the run's
+sampling provenance (``chunkflow.stats_provenance``) as the row's 7th
+element.
 
 At ``smoke`` size the streamed sweeps of parts 2 and 5 take 20k
 arrivals (the JAX module's smoke takes 200k): the plain version that
@@ -41,8 +48,9 @@ arrivals), the cost that ``chip_smoke.py`` avoids by running this module
 at its smoke size.
 
 Emits per-family rows plus ``sweep_engine/total``,
-``sweep_engine/chunked*``, ``sweep_engine/kernel_on_vs_off`` and
-``sweep_engine/pipeline_on_vs_off``."""
+``sweep_engine/chunked*``, ``sweep_engine/kernel_on_vs_off``,
+``sweep_engine/pipeline_on_vs_off`` and (with a mesh)
+``sweep_engine/sharded*`` rows."""
 from __future__ import annotations
 
 import argparse
@@ -52,6 +60,7 @@ import numpy as np
 import torch
 
 from repro_torch.bench.common import Row
+from repro_torch.core import chunkflow
 from repro_torch.core import distributions as dists
 from repro_torch.core import queueing, scenario as scn_mod, threshold
 from repro_torch.core.scenario import Scenario
@@ -123,6 +132,50 @@ def _big_cfg(smoke: bool) -> queueing.SimConfig:
                               n_arrivals=20_000 if smoke else 2_000_000)
 
 
+def _sharded_rows(cfg: queueing.SimConfig, mesh, smoke: bool, kernel: str,
+                  device) -> list[Row]:
+    """Sharded vs unsharded on the chunked sweep and the threshold batch:
+    wall clock both ways, bit-identity recorded (never raised, so a
+    violation still leaves its rows), the mesh shape as provenance."""
+    shape, n_dev = mesh.shape, mesh.size
+    rhos = np.linspace(0.1, 0.4, 3 if smoke else 8, dtype=np.float32)
+    d = dists.exponential()
+    scn = Scenario.paper_default(d, ks=(1, 2))
+    legs, secs = {}, {}
+    for label, m in (("un", None), ("sh", mesh)):
+        t0 = time.perf_counter()
+        legs[label] = queueing.run(SEED, scn, rhos, cfg, n_seeds=2,
+                                   chunk_size=CHUNK, mesh=m, kernel=kernel,
+                                   device=device)
+        _sync()
+        secs[label] = time.perf_counter() - t0
+    sampling = chunkflow.stats_provenance()
+    cells = 2 * rhos.shape[0] * 2
+    rows: list[Row] = [(
+        f"sweep_engine/sharded/sweep_d{n_dev}", secs["sh"] * 1e6,
+        f"cells={cells};devices={n_dev};"
+        f"bit_identical={_bit_equal(legs['un'], legs['sh'])};"
+        f"unsharded_s={secs['un']:.2f};sharded_s={secs['sh']:.2f}", shape,
+        scn_mod.provenance(scn), dispatch.resolve(kernel, device),
+        sampling)]
+
+    fams = [dists.pareto(2.5), dists.weibull(0.7), dists.two_point(0.8)]
+    ths = {}
+    for label, m in (("un", None), ("sh", mesh)):
+        t0 = time.perf_counter()
+        ths[label] = threshold.threshold_grid_batch(
+            SEED, fams, cfg, n_seeds=2, chunk_size=CHUNK, mesh=m,
+            kernel=kernel, device=device)
+        secs[label] = time.perf_counter() - t0
+    rows.append((f"sweep_engine/sharded/thresholds_d{n_dev}",
+                 secs["sh"] * 1e6,
+                 f"families={len(fams)};devices={n_dev};"
+                 f"bit_identical={ths['un'] == ths['sh']};"
+                 f"unsharded_s={secs['un']:.2f};sharded_s={secs['sh']:.2f}",
+                 shape))
+    return rows
+
+
 def _kernel_rows(cfg: queueing.SimConfig, smoke: bool, device) -> list[Row]:
     """``cell_update`` on vs off on the same chunked sweep: wall clock for
     each, bit-identity recorded, the measured speedup in the derived
@@ -167,7 +220,8 @@ def _pipeline_rows(kernel: str, smoke: bool, device) -> list[Row]:
              f"arrivals={big_cfg.n_arrivals};chunk={CHUNK};off_s={off_s:.2f};"
              f"on_s={on_s:.2f};speedup={off_s / on_s:.2f}x;"
              f"bit_identical={_bit_equal(legs['off'], legs['on'])}",
-             None, scn_mod.provenance(scn), resolved)]
+             None, scn_mod.provenance(scn), resolved,
+             chunkflow.stats_provenance())]
 
 
 def old_path(smoke: bool, device="cuda") -> tuple[list[float], list[float]]:
@@ -185,8 +239,6 @@ def old_path(smoke: bool, device="cuda") -> tuple[list[float], list[float]]:
 
 def run(smoke: bool = False, kernel: str = "auto", device="cuda",
         mesh=None) -> list[Row]:
-    if mesh is not None:
-        raise NotImplementedError(queueing.MESH_NOT_PORTED)
     rows: list[Row] = []
     dev = resolve_device(device)
     cfg = _cfg(smoke)
@@ -264,6 +316,8 @@ def run(smoke: bool = False, kernel: str = "auto", device="cuda",
 
     rows.extend(_kernel_rows(cfg, smoke, dev))
     rows.extend(_pipeline_rows(kernel, smoke, dev))
+    if mesh is not None:
+        rows.extend(_sharded_rows(cfg, mesh, smoke, kernel, dev))
     return rows
 
 

@@ -20,8 +20,9 @@ summary is read.
 
 Cell RANDOMNESS is keyed by the seed coordinate alone (each seed row of
 the sampled inputs comes from that seed's generator streams), never by
-position on the cell axis. The per-device row maps and mesh placement
-of the JAX package's plan belong to the port's multi-device slice.
+position on the cell axis, so sharding the axis over a ``"cells"`` mesh
+(``sharding_rule``; ``device_row_maps`` for each shard's input rows)
+cannot change a cell's bits.
 """
 from __future__ import annotations
 
@@ -53,6 +54,22 @@ class CellPlan:
     @property
     def stacked_shape(self) -> tuple[int, int, int]:
         return (self.n_seeds, self.n_loads, self.n_ks)
+
+    def sharding_rule(self, mesh):
+        """This plan's placement on a ``"cells"`` mesh: the
+        ``repro_torch.launch.mesh.SweepShardingRules`` the sharded
+        executor reads (each slot a contiguous block of cells). Requires
+        ``n_padded`` to be a multiple of the mesh size
+        (``make_cell_plan(pad_to=mesh.size)``)."""
+        from repro_torch.launch.mesh import SweepShardingRules
+
+        rules = SweepShardingRules(mesh)
+        if self.n_padded % rules.n_devices:
+            raise ValueError(
+                f"plan has {self.n_padded} padded cells, not a multiple "
+                f"of the {rules.n_devices}-slot mesh; build it with "
+                f"pad_to=mesh.size")
+        return rules
 
 
 def make_cell_plan(n_seeds: int, n_loads: int, n_ks: int, *,
@@ -122,3 +139,40 @@ def flatten(plan: CellPlan, x: torch.Tensor) -> torch.Tensor:
         flat = torch.cat(
             [flat, flat[:1].expand((n_pad,) + tuple(flat.shape[1:]))])
     return flat
+
+
+def device_row_maps(idx, n_devices: int):
+    """Per-shard input-row sets + shard-local remap for a global
+    ``(n_padded,)`` input-row index array (the plan's ``seed_idx``, or
+    the heterogeneous grid's service-row index ``dist_id * n_seeds +
+    seed_idx``).
+
+    Returns numpy ``(rows, local)``: ``rows[d]`` lists the global input
+    rows shard ``d``'s cells gather — unique, sorted, padded to the
+    common width ``R = max_d |unique(d)|`` by repeating the last entry —
+    and ``local[c]`` is the position of cell ``c``'s row inside its OWN
+    shard's list. For any global input block ``x``, shard ``d``'s block
+    ``x[rows[d]]`` then satisfies
+
+        x[rows[d]][local[c]] == x[idx[c]]   for every cell c on d,
+
+    so the chunk body, which reads inputs only through per-cell row
+    gathers, reads the same values from the shard's block: the remap
+    changes WHICH rows each process draws, never a bit.
+    """
+    idx = np.asarray(idx)
+    n_padded = idx.shape[0]
+    if n_padded % n_devices:
+        raise ValueError(f"{n_padded} cells do not tile {n_devices} "
+                         f"devices")
+    per = n_padded // n_devices
+    uniq = [np.unique(idx[d * per:(d + 1) * per])
+            for d in range(n_devices)]
+    width = max(u.size for u in uniq)
+    rows = np.stack([np.pad(u, (0, width - u.size), mode="edge")
+                     for u in uniq]).astype(np.int32)
+    local = np.empty((n_padded,), np.int32)
+    for d, u in enumerate(uniq):
+        local[d * per:(d + 1) * per] = np.searchsorted(
+            u, idx[d * per:(d + 1) * per])
+    return rows, local

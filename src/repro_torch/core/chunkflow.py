@@ -22,19 +22,78 @@ Bit-identity: the pipeline changes WHEN inputs are sampled, never WHAT
 is sampled — chunk ``c`` still draws from its own (seed, chunk)
 generator streams through the same sampler — so ``pipeline="on"`` and
 ``pipeline="off"`` produce bit-identical summaries (pinned by
-tests/test_torch_engine.py). This module is the port's copy of the
-pipeline of ``repro.core.chunkflow``; it imports neither torch nor JAX,
-and is engine-agnostic (no ``queueing`` import): the engine feeds it
-plain callables.
+tests/test_torch_engine.py).
+
+``PipelineStats`` records the last run's pipeline + sampling shape (per
+chunk: rows/bytes actually sampled vs the full input block) so the
+benchmark harness can carry per-process sampled-bytes provenance in its
+JSON rows (``stats_provenance``); on a sharded run each process draws
+only the rows its own shards gather.
+
+This module is the port's copy of ``repro.core.chunkflow``; it imports
+neither torch nor JAX, and is engine-agnostic (no ``queueing`` import):
+the engine layers feed it plain callables.
 """
 from __future__ import annotations
 
+import dataclasses
 import queue as queue_mod
 import threading
 
 # Staging slots the producer may fill ahead of the consumer (double
 # buffering).
 DEFAULT_DEPTH = 2
+
+
+@dataclasses.dataclass
+class PipelineStats:
+    """Pipeline + per-process sampling provenance of the last engine run.
+
+    ``*_rows_sampled`` count the input-block rows THIS process drew per
+    chunk; ``*_rows_total`` the full block's rows. ``bytes_*`` are the
+    same in bytes of the (gaps, servers, services) inputs.
+    """
+
+    enabled: bool
+    depth: int
+    n_chunks: int
+    seed_rows_sampled: int
+    seed_rows_total: int
+    svc_rows_sampled: int
+    svc_rows_total: int
+    bytes_sampled_per_chunk: int
+    bytes_full_per_chunk: int
+    process_count: int = 1
+    process_index: int = 0
+
+    @property
+    def locality_factor(self) -> float:
+        """full-block bytes / this process's sampled bytes (>= 1.0)."""
+        return self.bytes_full_per_chunk / max(self.bytes_sampled_per_chunk,
+                                               1)
+
+
+_LAST_STATS: list[PipelineStats | None] = [None]
+
+
+def record_stats(stats: PipelineStats) -> None:
+    """Engine layers call this once per run; benchmarks read it back."""
+    _LAST_STATS[0] = stats
+
+
+def last_stats() -> PipelineStats | None:
+    return _LAST_STATS[0]
+
+
+def stats_provenance() -> dict | None:
+    """The last run's stats as a JSON-ready dict (the ``sampling`` field
+    of ``repro_torch.bench.run --json`` rows)."""
+    st = last_stats()
+    if st is None:
+        return None
+    out = dataclasses.asdict(st)
+    out["locality_factor"] = round(st.locality_factor, 3)
+    return out
 
 
 def iter_staged(produce, n_chunks: int, *, depth: int = DEFAULT_DEPTH,

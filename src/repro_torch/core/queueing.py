@@ -47,7 +47,11 @@ of nothing that is sampled before it. Common random numbers follow:
     cells keep their bits in a grid that also holds degraded ones;
   * chunk c of a stream does not depend on how many chunks follow, and
     ``pipeline="on"`` / ``"off"`` give the same bits (sampling moves in
-    time, never in content).
+    time, never in content);
+  * sharded == unsharded: a row's streams do not depend on which other
+    rows are drawn beside it (``ChunkSampler.rows``), so a run on a
+    ``"cells"`` mesh (``mesh=``, ``repro_torch.distributed.sweep_shard``)
+    gives the unsharded bits for any number of shards and processes.
 
 Torch's generators do not reproduce JAX's threefry draws: the port is
 held to the JAX package bit for bit at the kernel boundary (injected
@@ -68,12 +72,14 @@ from repro_torch.core import scenario as scenario_mod
 from repro_torch.core.distributions import ServiceDist
 from repro_torch.core.scenario import Scenario, Variant
 from repro_torch.device import resolve_device, seeded_generator
+from repro_torch.distributed import multihost
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.cell_update import ops as cell_ops
 from repro_torch.kernels.cell_update import ref as cell_ref
 from repro_torch.kernels.hist_sketch import ops as hist_ops
 from repro_torch.kernels.hist_sketch.ops import (DEFAULT_BINS,  # noqa: F401
                                                  HIST_HI, HIST_LO)
+from repro_torch.launch import mesh as launch_mesh
 
 DEFAULT_PERCENTILES = (50.0, 90.0, 99.0, 99.9)
 
@@ -81,13 +87,6 @@ DEFAULT_PERCENTILES = (50.0, 90.0, 99.0, 99.9)
 # up to a multiple of this with zero-weight no-op arrivals when the
 # sketch is on.
 _SKETCH_BLOCK = 512
-
-# Why ``run(mesh=)``, sweep_engine's sharded part and the explorer's
-# ``--devices`` raise: the one message all three give.
-MESH_NOT_PORTED = (
-    "a sharded 'cells' mesh runs the sharded executor, which belongs to the "
-    "port's multi-device slice (repro.distributed.sweep_shard; ROADMAP "
-    "queue 1 item 13) and is not ported yet")
 
 # Purposes of the generator streams (see the module note).
 _GAPS, _FIRST, _SCORES, _SERVICE, _SHARED, _DEGRADE_STREAM = range(6)
@@ -214,9 +213,20 @@ class SamplerSpec:
 class ChunkSampler:
     """The engine's per-chunk input sampler: ``sampler(c, t)`` returns
     chunk ``c``'s ``(unit_gaps (S,T), servers (S,T,k_max) int32, services
-    (S_svc,T,n_svc))`` on ``device``. Service row ``r`` of a multi-dist
-    block is dist ``r // n_seeds`` drawn from seed row ``r % n_seeds``'s
-    streams — the same streams for every dist (CRN across dists)."""
+    (S_svc,T,n_svc))`` on ``device``. Seed row ``r`` draws from seed
+    ``r % n_seeds``'s streams (a ``"stacked"`` block repeats them for
+    every dist); service row ``r`` is dist ``r // n_seeds`` drawn from
+    seed ``r % n_seeds``'s streams — the same streams for every dist (CRN
+    across dists).
+
+    ``rows(c, t, seed_rows, svc_rows)`` draws only the requested global
+    rows: the per-process sampling reduction of the sharded executor.
+    Every stream is per ``(seed, chunk, row, purpose, j)``, so each row
+    has the bits of that row of the whole block whatever else is asked
+    for; the whole block is ``rows`` of every row. The JAX sampler's
+    ``fused`` entry point (its jitted copy of the call) has no
+    counterpart: eager PyTorch has no second dispatch to offer.
+    """
 
     def __init__(self, spec: SamplerSpec, seed: int, device="cuda"):
         self.spec = spec
@@ -224,18 +234,27 @@ class ChunkSampler:
         self.device = resolve_device(device)
 
     def __call__(self, c: int, t: int):
+        sp = self.spec
+        return self.rows(c, t, range(sp.n_seed_rows), range(sp.n_svc_rows))
+
+    def rows(self, c: int, t: int, seed_rows, svc_rows):
         sp, dev = self.spec, self.device
-        arr = [_arrival_part(self.seed, c, s, sp.cfg.n_servers, t,
-                             sp.k_max, dev) for s in range(sp.n_seeds)]
-        gaps = torch.stack([a[0] for a in arr])
-        servers = torch.stack([a[1] for a in arr])
+        arrivals: dict[int, tuple] = {}  # one draw per seed, however tiled
+
+        def arrival(r: int):
+            s = int(r) % sp.n_seeds
+            if s not in arrivals:
+                arrivals[s] = _arrival_part(self.seed, c, s, sp.cfg.n_servers,
+                                            t, sp.k_max, dev)
+            return arrivals[s]
+
+        gaps = torch.stack([arrival(r)[0] for r in seed_rows])
+        servers = torch.stack([arrival(r)[1] for r in seed_rows])
         services = torch.stack(
-            [_service_part(self.seed, c, s, dist, t, sp.k_max,
+            [_service_part(self.seed, c, int(r) % sp.n_seeds,
+                           sp.dists[int(r) // sp.n_seeds], t, sp.k_max,
                            sp.with_shared, sp.with_degr, dev)
-             for dist in sp.dists for s in range(sp.n_seeds)])
-        if sp.kind == "stacked":
-            d = sp.n_dists
-            gaps, servers = gaps.repeat(d, 1), servers.repeat(d, 1, 1)
+             for r in svc_rows])
         return gaps, servers, services
 
 
@@ -439,6 +458,35 @@ class EngineGrid:
         return dict(has_shared=self.has_shared, has_timed=self.has_timed,
                     has_dists=self.has_dists, k_count=self.k_count)
 
+    def shard(self, lo: int, hi: int, seed_local, svc_local,
+              device) -> "EngineGrid":
+        """Cells ``[lo, hi)`` on ``device``, reading a shard's own input
+        block: ``seed_local``/``svc_local`` (numpy, per cell of the whole
+        plan) are the cells' row positions in that block
+        (``cellplan.device_row_maps``). The flags stay the whole grid's:
+        they fix the service-column layout, which every shard reads the
+        same whether or not its own cells need a column."""
+        def take(x):
+            return None if x is None else x[lo:hi].to(device)
+
+        def local(idx, dtype):
+            return torch.as_tensor(idx[lo:hi], dtype=dtype, device=device)
+
+        p = self.plan
+        plan = dataclasses.replace(
+            p, n_cells=max(0, min(hi, p.n_cells) - lo), n_padded=hi - lo,
+            seed_idx=local(seed_local, torch.int64),
+            **{f: take(getattr(p, f)) for f in (
+                "load_idx", "k_idx", "valid", "policy_code", "model_code",
+                "dist_id")})
+        return dataclasses.replace(
+            self, plan=plan, seed_idx=local(seed_local, torch.int32),
+            svc_idx=(local(svc_local, torch.int32) if self.has_dists
+                     else None),
+            **{f: take(getattr(self, f)) for f in (
+                "rates", "k_mask", "k_count", "ovh", "mix", "p_slow",
+                "slow_factor", "p_fail", "delay")})
+
 
 def _plan_cell_params(plan: cellplan.CellPlan, rhos: torch.Tensor,
                       cfg: SimConfig, variants: tuple[Variant, ...]) -> dict:
@@ -468,10 +516,11 @@ def _plan_cell_params(plan: cellplan.CellPlan, rhos: torch.Tensor,
 
 
 def _engine_grid(n_seeds_total: int, rhos, cfg: SimConfig, variants,
-                 device) -> EngineGrid:
-    """Plan the (seed, load, variant) grid on ``device`` and gather its
-    per-cell parameters. ``variants`` may be plain ``ks`` ints (paper
-    default, overhead from ``cfg``) or ``Variant``s."""
+                 device, pad_to: int = 1) -> EngineGrid:
+    """Plan the (seed, load, variant) grid on ``device`` (its cells
+    padded to a multiple of ``pad_to``) and gather its per-cell
+    parameters. ``variants`` may be plain ``ks`` ints (paper default,
+    overhead from ``cfg``) or ``Variant``s."""
     dev = torch.device(device)
     variants = tuple(
         v if isinstance(v, Variant)
@@ -480,9 +529,9 @@ def _engine_grid(n_seeds_total: int, rhos, cfg: SimConfig, variants,
     rhos = torch.as_tensor(rhos, dtype=torch.float32, device=dev)
     policies, models = scenario_mod.variant_codes(variants)
     plan = cellplan.make_cell_plan(
-        n_seeds_total, rhos.shape[0], len(variants), policies=policies,
-        models=models, dist_ids=scenario_mod.variant_dist_ids(variants),
-        device=dev)
+        n_seeds_total, rhos.shape[0], len(variants), pad_to=pad_to,
+        policies=policies, models=models,
+        dist_ids=scenario_mod.variant_dist_ids(variants), device=dev)
     has_dists = scenario_mod.any_dist_ids(variants)
     return EngineGrid(
         plan=plan, seed_idx=plan.seed_idx.to(torch.int32),
@@ -508,14 +557,31 @@ def _chunk_inputs(unit_gaps, services, start: int, n_valid: int,
             services * valid_f[None, :, None])
 
 
+# Rows of every CUDA scan call of ``_row_cumsum``.
+_SCAN_ROWS = 16
+
+
 def _row_cumsum(x: torch.Tensor) -> torch.Tensor:
-    """``torch.cumsum(x, dim=1)`` of an (S, T) tensor, the same bits in
-    every run. On CUDA a single row (S = 1) would take PyTorch's
-    device-wide scan, whose float32 order varies from run to run; two
-    copies of the row take the per-row scan, whose order is fixed."""
-    if x.is_cuda and x.shape[0] == 1:
-        return torch.cumsum(x.expand(2, -1), dim=1)[:1]
-    return torch.cumsum(x, dim=1)
+    """``torch.cumsum(x, dim=1)`` of an (S, T) tensor, each row's bits a
+    function of that row alone: the same in every run and whatever the
+    block's height S, so a shard's block scans a row as the whole grid's
+    block does (sharded == unsharded).
+
+    On the CPU the scan runs each row in order. On CUDA a single row
+    would take PyTorch's device-wide scan, whose float32 order varies
+    from run to run, and the per-row scan splits a row over a number of
+    threads that falls as S grows (32 threads a row at S = 30, 64 at
+    S = 8), which moves its rounding. So on CUDA the rows are scanned
+    in calls of exactly ``_SCAN_ROWS`` rows, the last padded with
+    zeros."""
+    if not x.is_cuda:
+        return torch.cumsum(x, dim=1)
+    n = x.shape[0]
+    pad = -n % _SCAN_ROWS
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+    return torch.cat([torch.cumsum(g, dim=1)
+                      for g in x.split(_SCAN_ROWS)])[:n]
 
 
 def _sweep_chunk_cells(free, ssum, comp, cnt, hist, unit_gaps, servers,
@@ -597,6 +663,36 @@ def _finalize_summary(plan: cellplan.CellPlan, ssum, cnt, hist, count: int,
     return out
 
 
+def _record_pipeline_stats(sampler, *, enabled: bool, n_chunks: int,
+                           t_pad: int, seed_rows: int | None = None,
+                           svc_rows: int | None = None) -> None:
+    """Publish this run's pipeline + sampling shape to ``chunkflow`` (the
+    benchmarks' JSON provenance). ``seed_rows``/``svc_rows`` are the rows
+    THIS process drew per chunk: the rows of its own shards on a mesh,
+    the whole block (``None``) otherwise. A sampler without a ``spec``
+    (``interop.NumpySampler``) records nothing."""
+    spec = getattr(sampler, "spec", None)
+    if spec is None:
+        return
+    k_max, n_svc = spec.k_max, spec.n_svc_cols
+    seed_rows = spec.n_seed_rows if seed_rows is None else seed_rows
+    svc_rows = spec.n_svc_rows if svc_rows is None else svc_rows
+
+    def nbytes(n_seed, n_svc_rows):
+        # f32 gaps (rows, T) + i32 servers (rows, T, k_max)
+        # + f32 services (rows, T, n_svc)
+        return 4 * t_pad * (n_seed * (1 + k_max) + n_svc_rows * n_svc)
+
+    chunkflow.record_stats(chunkflow.PipelineStats(
+        enabled=enabled, depth=chunkflow.DEFAULT_DEPTH, n_chunks=n_chunks,
+        seed_rows_sampled=seed_rows, seed_rows_total=spec.n_seed_rows,
+        svc_rows_sampled=svc_rows, svc_rows_total=spec.n_svc_rows,
+        bytes_sampled_per_chunk=nbytes(seed_rows, svc_rows),
+        bytes_full_per_chunk=nbytes(spec.n_seed_rows, spec.n_svc_rows),
+        process_count=multihost.process_count(),
+        process_index=multihost.process_index()))
+
+
 def _run_engine(sampler, n_seeds_total: int, rhos, cfg: SimConfig, *,
                 variants: tuple[Variant, ...], warmup_frac: float,
                 percentiles: tuple[float, ...], n_bins: int,
@@ -629,6 +725,8 @@ def _run_engine(sampler, n_seeds_total: int, rhos, cfg: SimConfig, *,
             free, ssum, comp, cnt, hist, unit_gaps, servers, services,
             start, min(t_chunk, m - start), warmup_start, grid,
             n_bins=n_bins, block=block, kernel=kernel)
+    _record_pipeline_stats(sampler, enabled=use_pipe, n_chunks=n_chunks,
+                           t_pad=t_chunk + pad)
     return _finalize_summary(plan, ssum, cnt, hist, m - warmup_start,
                              percentiles)
 
@@ -667,14 +765,20 @@ def run(seed: int, scenario: scenario_mod.ScenarioLike, rhos,
     kernel runs, since launches do not wait for the card, and measured
     faster than the thread on the H100 (PERF.md). ``device``
     defaults to ``"cuda"`` and raises where there is no CUDA; pass
-    ``"cpu"`` for the plain path. ``mesh`` belongs to the multi-device
-    slice of the port and raises ``NotImplementedError``.
+    ``"cpu"`` for the plain path.
+
+    ``mesh`` (a ``repro_torch.launch.mesh.SweepMesh``) runs the sharded
+    cell-plan executor (``repro_torch.distributed.sweep_shard``): each
+    slot's cells on its device, each process drawing only its own
+    shards' rows on ``device``, one gather after the last chunk — the
+    unsharded bits for any number of shards and processes. ``mesh=None``
+    defers to the ambient mesh (``launch.mesh.resolve_mesh``: a
+    ``use_sweep_mesh`` context or the default of a multi-process run),
+    else runs on ``device`` alone.
 
     ``warmup_frac`` and ``client_overhead`` come from the Scenario, not
     from ``cfg``.
     """
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
     dev = resolve_device(device)
     dispatch.check_mode(kernel)
     dist_list, warmup_frac, variants = scenario_mod.combine(scenario)
@@ -687,11 +791,18 @@ def run(seed: int, scenario: scenario_mod.ScenarioLike, rhos,
         with_shared=scenario_mod.any_server_dependent(variants),
         with_degr=scenario_mod.any_degraded(variants), device=dev)
     d = len(dist_list)
-    out = _run_engine(sampler, n_seeds if has_dists else d * n_seeds, rhos,
-                      cfg, variants=variants, warmup_frac=warmup_frac,
-                      percentiles=tuple(percentiles), n_bins=n_bins,
-                      chunk_size=chunk_size, kernel=kernel,
-                      pipeline=pipeline, device=dev)
+    kwargs = dict(variants=variants, warmup_frac=warmup_frac,
+                  percentiles=tuple(percentiles), n_bins=n_bins,
+                  chunk_size=chunk_size, kernel=kernel, pipeline=pipeline,
+                  device=dev)
+    n_seeds_total = n_seeds if has_dists else d * n_seeds
+    mesh = launch_mesh.resolve_mesh(mesh)
+    if mesh is not None:
+        from repro_torch.distributed.sweep_shard import _sweep_cells_sharded
+        out = _sweep_cells_sharded(sampler, n_seeds_total, rhos, cfg,
+                                   mesh=mesh, **kwargs)
+    else:
+        out = _run_engine(sampler, n_seeds_total, rhos, cfg, **kwargs)
     if d > 1 and not has_dists:
         out = {k: (v.reshape((d, n_seeds) + tuple(v.shape[1:]))
                    if isinstance(v, torch.Tensor) else v)
@@ -768,18 +879,20 @@ def mean_response(seed: int, dist: ServiceDist, rhos, cfg: SimConfig,
 
 def replication_gain(seed: int, dist: ServiceDist, rhos, cfg: SimConfig,
                      k: int = 2, n_seeds: int = 2,
-                     chunk_size: int | None = None, kernel: str = "auto",
-                     device="cuda") -> torch.Tensor:
+                     chunk_size: int | None = None, mesh=None,
+                     kernel: str = "auto", device="cuda") -> torch.Tensor:
     """mean_k1(rho) - mean_k(rho), CRN-paired per seed. Positive = k helps.
 
     .. deprecated:: Thin shim over ``run`` with a paper-default
        ``Scenario`` at ``ks=(1, k)`` (emits ``DeprecationWarning``);
        prefer ``run`` + a paired-gain reduction (or
-       ``threshold.scenario_gain``). Takes no ``mesh``: the sharded
-       executor is not ported."""
+       ``threshold.scenario_gain``).
+
+    ``mesh`` routes the sweep through the sharded cell-plan executor
+    (bit-identical to the one-device path; see the module CRN contract)."""
     _warn_deprecated_shim("replication_gain")
     out = run(seed, _paper_default(dist, (1, k), cfg), rhos, cfg,
               n_seeds=n_seeds, percentiles=(), chunk_size=chunk_size,
-              kernel=kernel, device=device)
+              mesh=mesh, kernel=kernel, device=device)
     m = out["mean"]  # (S, B, 2)
     return (m[:, :, 0] - m[:, :, 1]).mean(dim=0)

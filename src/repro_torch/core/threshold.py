@@ -11,7 +11,11 @@ paper's model, with ``client_overhead``/``warmup_frac`` read from the
 service model / mix / overhead define the comparison; its ``ks`` are
 overridden to ``(1, k)``. All of them drive ``queueing.run`` (batched over
 seeds x loads x k, so one call serves a whole load grid) and take its
-``chunk_size``, ``kernel`` and ``device`` knobs:
+``chunk_size``, ``mesh``, ``kernel`` and ``device`` knobs. ``mesh=None``
+is NOT "no mesh": it defers to ``run``'s ambient resolution
+(``repro_torch.launch.mesh.resolve_mesh`` — a ``use_sweep_mesh`` context
+or the default of a multi-process run), so the estimators run sharded
+without mesh plumbing of their own, with the unsharded bits:
 
   * ``threshold_bisect`` — SPECULATIVE bisection on the sign of the
     CRN-paired gain mean_k1(rho) - mean_k(rho): each engine call
@@ -55,8 +59,8 @@ def _as_scenario(dist_or_scenario, cfg: SimConfig, k: int) -> Scenario:
 
 def scenario_gain(seed: int, dist_or_scenario, rhos, cfg: SimConfig, *,
                   k: int = 2, n_seeds: int = 2,
-                  chunk_size: int | None = None, kernel: str = "auto",
-                  device="cuda") -> np.ndarray:
+                  chunk_size: int | None = None, mesh=None,
+                  kernel: str = "auto", device="cuda") -> np.ndarray:
     """(B,) seed-averaged CRN-paired gain mean_k1(rho) - mean_k(rho) under
     the scenario's policy / service model (positive = replication helps).
 
@@ -64,7 +68,7 @@ def scenario_gain(seed: int, dist_or_scenario, rhos, cfg: SimConfig, *,
     mixed-grid engine call: the paired columns interleave on the variant
     axis and the result is ``(B, n_scenarios)``."""
     kw = dict(n_seeds=n_seeds, percentiles=(), chunk_size=chunk_size,
-              kernel=kernel, device=device)
+              mesh=mesh, kernel=kernel, device=device)
     if (not isinstance(dist_or_scenario, Scenario)
             and isinstance(dist_or_scenario, (list, tuple))
             and all(isinstance(s, Scenario) for s in dist_or_scenario)):
@@ -78,8 +82,8 @@ def scenario_gain(seed: int, dist_or_scenario, rhos, cfg: SimConfig, *,
 def threshold_bisect(seed: int, dist_or_scenario, cfg: SimConfig, *,
                      k: int = 2, lo: float = 0.02, hi: float = 0.499,
                      iters: int = 10, n_seeds: int = 3,
-                     chunk_size: int | None = None, kernel: str = "auto",
-                     device="cuda") -> float:
+                     chunk_size: int | None = None, mesh=None,
+                     kernel: str = "auto", device="cuda") -> float:
     """Speculative bisection on the CRN-paired replication gain.
 
     Assumes the gain changes sign once on [lo, hi]. Returns the estimated
@@ -92,7 +96,7 @@ def threshold_bisect(seed: int, dist_or_scenario, cfg: SimConfig, *,
     """
     scn = _as_scenario(dist_or_scenario, cfg, k)
     kw = dict(n_seeds=n_seeds, percentiles=(), chunk_size=chunk_size,
-              kernel=kernel, device=device)
+              mesh=mesh, kernel=kernel, device=device)
     seeds = [int(s) for s in np.random.SeedSequence(seed).generate_state(
         iters + 1, np.uint32)]
     bracket = run(seeds[-1], scn, [lo, hi], cfg, **kw)
@@ -134,8 +138,8 @@ def policy_table(seed: int, dist_or_scenario, cfg: SimConfig, *,
                  rhos=None, ks: tuple[int, ...] = (1, 2),
                  delays: tuple[float, ...] = (0.0, 0.5, 1.0, 2.0),
                  percentile: float = 99.0, n_seeds: int = 2,
-                 chunk_size: int | None = None, kernel: str = "auto",
-                 device="cuda") -> dict:
+                 chunk_size: int | None = None, mesh=None,
+                 kernel: str = "auto", device="cuda") -> dict:
     """Precompute a (rho x k x hedge-delay) policy table in ONE mixed-grid
     ``queueing.run`` sweep — what an adaptive serving controller reads.
 
@@ -164,7 +168,7 @@ def policy_table(seed: int, dist_or_scenario, cfg: SimConfig, *,
                 entries.append((k, float(d)))
     out = run(seed, scns, rhos, cfg, n_seeds=n_seeds,
               percentiles=(float(percentile),), chunk_size=chunk_size,
-              kernel=kernel, device=device)
+              mesh=mesh, kernel=kernel, device=device)
     tail = out[f"p{float(percentile):g}"].mean(dim=0).cpu().numpy()
     mean = out["mean"].mean(dim=0).cpu().numpy()
     return {"rhos": rhos.astype(np.float64),
@@ -198,19 +202,19 @@ def default_rhos() -> np.ndarray:
 
 def threshold_grid(seed: int, dist_or_scenario, cfg: SimConfig, *,
                    k: int = 2, rhos=None, n_seeds: int = 2,
-                   chunk_size: int | None = None, kernel: str = "auto",
-                   device="cuda") -> float:
+                   chunk_size: int | None = None, mesh=None,
+                   kernel: str = "auto", device="cuda") -> float:
     """ONE sweep over the load grid + crossing interpolation."""
     rhos = default_rhos() if rhos is None else np.asarray(rhos, np.float32)
     g = scenario_gain(seed, dist_or_scenario, rhos, cfg, k=k,
-                      n_seeds=n_seeds, chunk_size=chunk_size, kernel=kernel,
-                      device=device)
+                      n_seeds=n_seeds, chunk_size=chunk_size, mesh=mesh,
+                      kernel=kernel, device=device)
     return crossing_load(rhos, g)
 
 
 def threshold_grid_batch(seed: int, dists_or_scenario, cfg: SimConfig, *,
                          k: int = 2, rhos=None, n_seeds: int = 2,
-                         chunk_size: int | None = None,
+                         chunk_size: int | None = None, mesh=None,
                          kernel: str = "auto",
                          device="cuda") -> list[float]:
     """Thresholds for MANY distributions from a single engine call
@@ -225,7 +229,8 @@ def threshold_grid_batch(seed: int, dists_or_scenario, cfg: SimConfig, *,
         scn = dataclasses.replace(_as_scenario(dist_tuple[0], cfg, k),
                                   dists=dist_tuple)
     m = run(seed, scn, rhos, cfg, n_seeds=n_seeds, percentiles=(),
-            chunk_size=chunk_size, kernel=kernel, device=device)["mean"]
+            chunk_size=chunk_size, mesh=mesh, kernel=kernel,
+            device=device)["mean"]
     if m.ndim == 3:
         m = m[None]                                  # (D, S, B, 2)
     g = (m[..., 0] - m[..., 1]).mean(dim=1).cpu().numpy()  # (D, B)

@@ -21,8 +21,10 @@ stops helping as ``--mix`` approaches 1).
 ``--arrivals`` can go into the millions without pre-sampling the whole
 stream (the default, no chunking, samples it at once).
 
-``--devices N`` asks for the sharded cell-plan executor, which is not
-ported yet: it raises (``queueing.MESH_NOT_PORTED``).
+``--devices N`` runs the sweep through the sharded cell-plan executor on
+an N-slot ``"cells"`` mesh (bit-identical to the one-device run): N CPU
+slots with ``--device cpu``; on the card N is clamped to the visible
+cards, with a note (``repro_torch.launch.mesh.requested_mesh``).
 
 ``--kernel {auto,on,off}`` picks the engine's chunk body: the
 ``cell_update`` kernel or its plain version (``auto`` = the kernel on the
@@ -37,6 +39,7 @@ from repro_torch.core import queueing, threshold
 from repro_torch.core.scenario import (Policy, Scenario, ServiceModel,
                                        parse_policy, parse_service_model)
 from repro_torch.kernels import dispatch
+from repro_torch.launch.mesh import requested_mesh
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -65,15 +68,16 @@ def main(argv: list[str] | None = None) -> dict:
                     help="stream arrivals in chunks of this many steps "
                          "(memory independent of --arrivals)")
     ap.add_argument("--devices", type=int, default=None,
-                    help="shard the sweep's cells over this many devices "
-                         "(not ported yet: raises)")
+                    help="shard the sweep's cells over this many slots "
+                         "(--device cpu: CPU slots; on the card clamped "
+                         "to the visible cards)")
     ap.add_argument("--kernel", default="auto", choices=dispatch.KERNEL_MODES,
                     help="cell_update kernel mode (auto: the kernel on the "
                          "card, the plain version on the CPU)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.devices:
-        raise NotImplementedError(queueing.MESH_NOT_PORTED)
+    mesh = requested_mesh(args.devices, args.device) if args.devices \
+        else None
 
     factory = dists.FAMILIES[args.family]
     dist = factory(args.param) if args.param is not None else factory()
@@ -86,15 +90,16 @@ def main(argv: list[str] | None = None) -> dict:
 
     # one engine call over all (load, k) cells of the scenario
     s = queueing.run(0, scn, args.loads, cfg, n_seeds=1,
-                     chunk_size=args.chunk_size, kernel=kernel,
+                     chunk_size=args.chunk_size, mesh=mesh, kernel=kernel,
                      device=args.device)
 
     model = scn.service_model.name.lower()
     if scn.service_model is ServiceModel.SERVER_DEPENDENT:
         model += f"(mix={scn.mix:g})"
     print(f"service = {dist.name}, N = {args.servers}, "
-          f"policy = {scn.policy.name.lower()}, model = {model}, "
-          f"kernel = {kernel}, device = {args.device}")
+          f"policy = {scn.policy.name.lower()}, model = {model}"
+          + (f", mesh = {mesh.size}-way 'cells'" if mesh else "")
+          + f", kernel = {kernel}, device = {args.device}")
     print("load  " + "  ".join(f"k={k}: mean/p99" for k in args.k))
     for i, rho in enumerate(args.loads):
         cells = [f"{float(s['mean'][0, i, j]):7.3f}/"
@@ -103,8 +108,8 @@ def main(argv: list[str] | None = None) -> dict:
         print(f"{float(rho):.2f} " + "  ".join(cells))
 
     t = threshold.threshold_grid(0, scn, cfg, n_seeds=2,
-                                 chunk_size=args.chunk_size, kernel=kernel,
-                                 device=args.device)
+                                 chunk_size=args.chunk_size, mesh=mesh,
+                                 kernel=kernel, device=args.device)
     print(f"\nestimated threshold load (k=2): {t:.3f} "
           f"(paper model: always in ~(0.26, 0.5) with no client overhead)")
     return {"summary": s, "threshold": t}

@@ -16,8 +16,8 @@ is loaded, as JAX loads it) and as exact float32 values where it does
 not. Neither imports ``ml_dtypes``.
 
 ``NumpySampler`` replays pre-drawn numpy chunks through the port's
-``queueing._run_engine``, so one set of draws can be pushed through
-both engines.
+engine, unsharded or sharded, so one set of draws can be pushed through
+both packages.
 """
 from __future__ import annotations
 
@@ -99,18 +99,29 @@ def plan_from_numpy(n_seeds: int, n_loads: int, n_ks: int, *, seed_idx,
 class NumpySampler:
     """Replays pre-drawn chunks ``[(unit_gaps (S,T), servers (S,T,k),
     services (S_svc,T,n_svc)), ...]`` (numpy) through the port's engine:
-    ``sampler(c, t)`` returns chunk ``c`` as tensors on ``device``."""
+    ``sampler(c, t)`` returns chunk ``c`` as tensors on ``device``, and
+    ``sampler.rows(c, t, seed_rows, svc_rows)`` only those global rows of
+    it, as the sharded executor asks (``queueing.ChunkSampler.rows``)."""
 
     def __init__(self, chunks, device="cuda"):
         self.chunks = list(chunks)
         self.device = resolve_device(device)
 
     def __call__(self, c: int, t: int):
+        return self.rows(c, t, slice(None), slice(None))
+
+    def rows(self, c: int, t: int, seed_rows, svc_rows):
         gaps, servers, services = self.chunks[c]
         if np.shape(gaps)[1] != t:
             raise ValueError(f"chunk {c} holds {np.shape(gaps)[1]} steps, "
                              f"the engine asked for {t}")
-        return chunk_from_numpy(gaps, servers, services, self.device)
+        def take(x, r):
+            return np.asarray(x)[r if isinstance(r, slice)
+                                 else np.asarray(r, np.int64)]
+
+        return chunk_from_numpy(take(gaps, seed_rows),
+                                take(servers, seed_rows),
+                                take(services, svc_rows), self.device)
 
 
 # Argument order of ``cell_update_ref`` / ``cell_update`` in both packages.

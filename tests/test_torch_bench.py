@@ -39,7 +39,9 @@ NEW_MODULES = (["repro_torch.bench.run", "repro_torch.bench.common",
                 "repro_torch.serving.service",
                 "repro_torch.examples.queueing_explorer",
                 "repro_torch.examples.serve_hedged",
-                "repro_torch.examples.quickstart"]
+                "repro_torch.examples.quickstart",
+                "repro_torch.launch.mesh", "repro_torch.distributed.multihost",
+                "repro_torch.distributed.sweep_shard"]
                + [f"repro_torch.bench.{m}" for m in MODULES])
 
 # sweep_engine's streamed sweep is named by its size; the port's smoke
@@ -172,21 +174,37 @@ def test_roofline_rows_on_the_cards_peaks():
     assert "item 15" in missing[2]
 
 
-def test_sharded_parts_name_the_multi_device_slice():
+def test_sweep_engine_sharded_rows_bit_identical():
+    # part 3 on a 2-slot CPU mesh: the smoke rows, then the two sharded
+    # rows, each holding the unsharded bits and the mesh shape
     from repro_torch.bench import sweep_engine
-    from repro_torch.core import distributions as dists, queueing
-    from repro_torch.core.scenario import Scenario
+    from repro_torch.bench.common import row_sampling
+    from repro_torch.launch.mesh import make_sweep_mesh
+    rows = sweep_engine.run(smoke=True, device="cpu",
+                            mesh=make_sweep_mesh(devices=("cpu",) * 2))
+    assert [r[0] for r in rows] == [r[0] for r in port_rows(
+        "sweep_engine")] + ["sweep_engine/sharded/sweep_d2",
+                            "sweep_engine/sharded/thresholds_d2"]
+    for row in rows[-2:]:
+        derived = dict(p.split("=", 1) for p in row[2].split(";"))
+        assert derived["bit_identical"] == "True", row
+        assert derived["devices"] == "2"
+        assert row_provenance(row)[0] == [2]
+    assert row_sampling(rows[-2])["seed_rows_total"] == 2
+    assert row_sampling(next(r for r in rows if r[0] ==
+                             "sweep_engine/pipeline_on_vs_off"))[
+        "n_chunks"] == 5
+
+
+def test_queueing_explorer_devices_prints_the_mesh(capsys):
     from repro_torch.examples import queueing_explorer
-    assert "ROADMAP queue 1 item 13" in queueing.MESH_NOT_PORTED
-    with pytest.raises(NotImplementedError) as a:
-        sweep_engine.run(smoke=True, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError) as b:
-        queueing_explorer.main(["--devices", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError) as c:
-        queueing.run(0, Scenario.paper_default(dists.exponential()), [0.2],
-                     queueing.SimConfig(), mesh=object(), device="cpu")
-    assert str(a.value) == str(b.value) == str(c.value) == \
-        queueing.MESH_NOT_PORTED
+    out = queueing_explorer.main(["--devices", "2", "--device", "cpu",
+                                  "--arrivals", "3000"])
+    un = queueing_explorer.main(["--device", "cpu", "--arrivals", "3000"])
+    text = capsys.readouterr().out
+    assert "mesh = 2-way 'cells'" in text
+    assert torch.equal(out["summary"]["mean"], un["summary"]["mean"])
+    assert out["threshold"] == un["threshold"]
 
 
 def test_queueing_explorer_smoke(capsys):

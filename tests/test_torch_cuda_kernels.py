@@ -143,6 +143,19 @@ def test_chunk_arrival_offsets_are_the_same_bits_every_run(cuda_device,
     assert torch.allclose(runs[0].cpu().double(), want, rtol=1e-5)
 
 
+def test_chunk_arrival_offsets_do_not_depend_on_the_blocks_height(
+        cuda_device):
+    # a shard's block holds some of the grid's rows: each row must scan to
+    # the same bits as in the whole block (sharded == unsharded)
+    from repro_torch.core import queueing
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    gaps = torch.rand((40, 4096), generator=gen, device=cuda_device)
+    whole = queueing._row_cumsum(gaps)
+    for rows in ([7], [0, 1], list(range(3, 11)), list(range(15)),
+                 list(range(17)), list(range(2, 32))):
+        assert torch.equal(queueing._row_cumsum(gaps[rows]), whole[rows])
+
+
 def test_run_with_kernels_equals_plain_run(cuda_device):
     d = dists.pareto(2.2)
     grid = (Scenario.paper_default(d, ks=(1, 2)),
@@ -155,6 +168,28 @@ def test_run_with_kernels_equals_plain_run(cuda_device):
     cfg = queueing.SimConfig(n_servers=20, n_arrivals=4_000)
     a = queueing.run(3, grid, [0.1, 0.3], cfg, kernel="on", **kw)
     b = queueing.run(3, grid, [0.1, 0.3], cfg, kernel="off", **kw)
+    for key in ("mean", "completed", "p50", "p99"):
+        assert torch.equal(a[key], b[key]), key
+
+
+def test_sharded_kernel_run_equals_unsharded(cuda_device):
+    # three shards on one card: 2 seeds x 2 loads x 4 variants = 16 cells
+    # padded to 18, every shard's cells through cell_update once a chunk
+    from repro_torch.launch.mesh import make_sweep_mesh
+    d = dists.pareto(2.2)
+    grid = (Scenario.paper_default(d, ks=(1, 2)),
+            Scenario(dists=d, policy=CANCEL_ON_COMPLETE, ks=(3,),
+                     service_model=SERVER_DEPENDENT, mix=0.4),
+            Scenario(dists=d, policy=HEDGE_AFTER_DELAY, delay=0.5, ks=(2,),
+                     degradation=Degradation(p_fail=0.05)))
+    kw = dict(n_seeds=2, percentiles=(50.0, 99.0), chunk_size=1500,
+              kernel="auto", device="cuda")
+    cfg = queueing.SimConfig(n_servers=20, n_arrivals=4_000)
+    mesh = make_sweep_mesh(devices=(cuda_device,) * 3)
+    a = queueing.run(3, grid, [0.1, 0.3], cfg, **kw)
+    cell_kernel.cell_update_cuda.launches = 0
+    b = queueing.run(3, grid, [0.1, 0.3], cfg, mesh=mesh, **kw)
+    assert cell_kernel.cell_update_cuda.launches == 3 * 3  # shards x chunks
     for key in ("mean", "completed", "p50", "p99"):
         assert torch.equal(a[key], b[key]), key
 

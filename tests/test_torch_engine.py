@@ -367,7 +367,18 @@ class TestRunGuards:
         with pytest.raises(ValueError, match="pipeline"):
             queueing.run(0, self.SCN, [0.2], cfg, pipeline="maybe", **CPU)
 
-    def test_mesh_names_the_multi_device_slice(self):
-        with pytest.raises(NotImplementedError, match="multi-device"):
+    def test_mesh_takes_the_checks_of_the_jax_executor(self):
+        # a mesh that is not a 1-D ("cells",) mesh raises ValueError and a
+        # bare sampler callable TypeError, as repro.distributed.sweep_shard
+        from repro_torch.distributed import sweep_shard
+        from repro_torch.launch.mesh import make_sweep_mesh
+        with pytest.raises(ValueError, match="cells"):
             queueing.run(0, self.SCN, [0.2], queueing.SimConfig(),
                          mesh=object(), **CPU)
+        with pytest.raises(TypeError, match="ChunkSampler"):
+            sweep_shard._sweep_cells_sharded(
+                lambda c, t: None, 1, [0.2], queueing.SimConfig(),
+                variants=self.SCN.variants(), warmup_frac=0.1,
+                percentiles=(), n_bins=64, chunk_size=1_000,
+                mesh=make_sweep_mesh(devices=("cpu",)),
+                device=torch.device("cpu"))

@@ -75,8 +75,14 @@ def test_replication_gain_is_the_paired_reduction_of_run():
     m = _run(dists.deterministic(), (1, 2), n_seeds=2,
              percentiles=())["mean"]
     assert torch.equal(got, (m[:, :, 0] - m[:, :, 1]).mean(dim=0))
-    assert "mesh" not in inspect.signature(
-        queueing.replication_gain).parameters
+    # mesh= runs the sharded executor, with the same bits
+    assert "mesh" in inspect.signature(queueing.replication_gain).parameters
+    from repro_torch.launch.mesh import make_sweep_mesh
+    with pytest.warns(DeprecationWarning, match="replication_gain"):
+        sharded = queueing.replication_gain(
+            3, dists.deterministic(), RHOS, CFG, k=2, n_seeds=2,
+            mesh=make_sweep_mesh(devices=("cpu",) * 2), **CPU)
+    assert torch.equal(sharded, got)
 
 
 def _scenario_pairs():

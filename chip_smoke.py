@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py              # every phase; needs one card
     python3 chip_smoke.py --gates      # phases 1-3, 5-7, 9, 11, 15, gates recorded
+    python3 chip_smoke.py --gates 16   # phase 16 alone (the seven models)
     python3 chip_smoke.py --faults     # --gates on planted faults F9-F18
     python3 chip_smoke.py --faults F12 F13 F14   # only those (+ control)
 
@@ -59,7 +60,14 @@ nonzero:
      before and after it wraps, a dense cache of 4672 slots and a ring of
      4096 at pos = 5000 (timed, with ``flex_attention`` and SDPA), and
      recurrentgemma-9b's MQA ring of 2048 at pos 23 and 2575 (timed,
-     with masked SDPA); the device's kernels per call from a trace;
+     with masked SDPA); the device's kernels per call from a trace. Then
+     both kernels, untimed, at the head shapes of phase 16's models, dense
+     and causal (``ZOO_HEADS``: hd 128 at groups of 6, 7 and 8, hd 64 at
+     groups of 1 and 3; S = 1000, a dense cache of 1100 slots at pos 1000;
+     query scales 1 and 8), under the same gates, and both timed at
+     command-r-35b's layer (S = 2048, a dense cache of 2056 slots) beside
+     their plain versions, the bound and masked SDPA (no softcap: the same
+     function);
   7. gemma2-2b at full width and depth (26 layers, random weights from the
      port's own init on the card): a 4608-token prompt, longer than the
      window, then 16 teacher-forced decode steps. Once with every
@@ -146,11 +154,30 @@ nonzero:
      unsharded kernel run bit for bit (mean, completed, every
      percentile; the thresholds; ``bit_identical=True``), with
      ``cell_update`` launched shards x chunks times in each; the walls of
-     (a) and (c) are printed beside phase 4's.
+     (a) and (c) are printed beside phase 4's;
+ 16. the other seven architectures of the JAX package at full width, one
+     at a time, each freed before the next (``ZOO_RUNS``, ``lm_full``):
+     gemma3-12b, nemotron-4-15b, command-r-35b and granite-moe-3b-a800m
+     over 2048-token prompts (gemma3's ring of 1024 wraps), musicgen-large
+     over 1024 frames of 4 codebooks, llava-next-34b over its 2,880 patches
+     and 16 text tokens, deepseek-v3-671b at a depth of 3 (one dense MLA
+     layer, two MLA-MoE layers: 50.9 GB) over 1024 tokens, each then 8
+     teacher-forced decode steps: the parameters ``param_count`` counts,
+     init seconds and peak memory, every attention kernel call checked
+     against its plain version (the row gate of phases 5-6), the kernels'
+     logits within twice the model's bf16 floor (the attention ops in
+     float32) at every step, MoE models replaying the plain run's expert
+     choices (``moe_routes``), prefill and decode times, the engine's
+     greedy tokens against repeated prefill for the token-prompt models;
+     then ``launch.serve.main`` serves 8 requests of command-r-35b and of
+     granite-moe-3b-a800m on 2 hedged replicas, both attention kernels
+     launching in each.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. A kernel's ``launches`` there are those
-of its main path's run (phase 4, 8, 10 or 12), ``cell_update``'s
+of its main path's run (phase 4, 8, 10 or 12; the attention kernels'
+``model_launches`` those of each phase-16 model's timed run and
+``model_served_launches`` its served runs), ``cell_update``'s
 ``figure_launches`` those of phase 13's modules, ``serving_launches``
 (``cell_update`` and the attention kernels) phase 14's, and
 ``cell_update``'s ``sharded_launches`` phase 15's (the spawned
@@ -159,8 +186,9 @@ which no main path launches, reads 0 and gives its launches in phase 2 as
 ``check_launches``. Needs CUDA and the repository's
 ``src/`` beside this script (or ``--src``); imports nothing of JAX or of
 ``repro``. ``--gates`` records every gate of phases 2, 3, 5-7, 9, 11 and
-15 (the worst multiple of its allowance; a bit gate as 0 or inf; phase
-15 runs its own unsharded references) instead of
+15, and of 16 where it is named (the worst multiple of its allowance; a
+bit gate as 0 or inf; phase 15 runs its own unsharded references; phase
+16 skips its serving) instead of
 stopping at the first that fails, and prints them as its last line;
 ``--faults`` runs it on a copy of the package for each planted fault of
 ``FAULTS`` over the phases that hold its kernel, the unedited package
@@ -190,6 +218,14 @@ ATTN_ATOL = 1e-6
 PROMPT = 4608      # prefill past gemma2-2b's window of 4096
 DECODE_STEPS = 16
 MAX_LEN = 4672     # dense (global-layer) cache: prompt + steps, rounded up
+# phases 5-6: the head shapes of phase 16's models (arch, query heads, KV
+# heads, head dim): groups of 6, 7 and 8 at hd 128, of 1 and 3 at hd 64
+ZOO_HEADS = (("nemotron-4-15b", 48, 8, 128), ("llava-next-34b", 56, 8, 128),
+             ("command-r-35b", 64, 8, 128), ("musicgen-large", 32, 32, 64),
+             ("granite-moe-3b-a800m", 24, 8, 64))
+ZOO_S = 1000       # flash_attention's sequence: a partial last tile
+ZOO_L, ZOO_POS = 1100, 1000  # decode_attention's dense cache and position
+CR_PROMPT = 2048   # command-r-35b's prompt in phase 16, timed in 5-6
 
 FIG2_LOADS = 24
 CHUNK = 4096
@@ -598,8 +634,80 @@ def attention_kernels(dev, timed: bool = True,
             f"live slot {ms_empty} ms, torch.sum over the same K and V "
             f"{ms_read} ms; device ms per call by kernel (trace of 50 "
             f"calls) {json.dumps(per_call)}")
+    # ------------------------------------------------ 5, 6: the other models
+    # the head shapes of phase 16's models, dense and causal, untimed but
+    # command-r-35b's layer (S = 2048, a dense cache of 2056 slots)
+    for arch, nh, nkv, hd_ in ZOO_HEADS:
+        for qs in (1, 8):
+            q, k, v = qs * bf16(b, ZOO_S, nh, hd_), bf16(b, ZOO_S, nkv, hd_), \
+                bf16(b, ZOO_S, nkv, hd_)
+            got, want = (fa_ops.flash_attention(q, k, v, kernel=mode)
+                         for mode in ("on", "off"))
+            shape = f"{arch} H={nh} KV={nkv} hd={hd_} S={ZOO_S}"
+            err = check_attention(f"flash_attention {shape}", got, want,
+                                  absolute=qs == 1, gate="phase 5",
+                                  raise_on_fail=raise_on_fail)
+            fa_err = max(fa_err, err) if qs == 1 else fa_err
+            log(f"[5] flash_attention {shape} query scale {qs}: max abs err "
+                f"vs plain {err}, worst row at {row_err(got, want)[1]} of its "
+                f"allowance")
+            q = qs * bf16(b, 1, nh, hd_)
+            k, v = bf16(b, ZOO_L, nkv, hd_), bf16(b, ZOO_L, nkv, hd_)
+            s = torch.arange(ZOO_L, device=dev, dtype=torch.int32)
+            slots = torch.where(s <= ZOO_POS, s, -1)
+            got, want = (da_ops.decode_attention(q, k, v, slots, ZOO_POS,
+                                                 kernel=mode)
+                         for mode in ("on", "off"))
+            shape = f"{arch} dense H={nh} KV={nkv} hd={hd_} L={ZOO_L} " \
+                    f"pos={ZOO_POS}"
+            err = check_attention(f"decode_attention {shape}", got, want,
+                                  absolute=qs == 1, gate="phase 6",
+                                  raise_on_fail=raise_on_fail)
+            da_err = max(da_err, err) if qs == 1 else da_err
+            log(f"[6] decode_attention {shape} query scale {qs}: max abs err "
+                f"vs plain {err}, worst row at {row_err(got, want)[1]} of its "
+                f"allowance")
     if not timed:
         return {}
+    nh, nkv, hd_ = 64, 8, 128  # command-r-35b's layer
+    s = CR_PROMPT
+    q, k, v = bf16(b, s, nh, hd_), bf16(b, s, nkv, hd_), bf16(b, s, nkv, hd_)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    cr_fa = dict(
+        ms=cuda_ms(lambda: fa_ops.flash_attention(q, k, v, kernel="on"), 10,
+                   "flash_attention"),
+        plain_ms=cuda_ms(lambda: fa_ops.flash_attention(q, k, v,
+                                                        kernel="off"), 3,
+                         "flash_attention plain"),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 10, "sdpa"))
+    pairs = s * (s + 1) // 2
+    cr_fa["bound_ms"], cr_fa["bound_by"] = bound(
+        2 * (2 * b * s * nh * hd_ + 2 * b * s * nkv * hd_),
+        4 * hd_ * nh * b * pairs, BF16_OPS_PER_S)
+    length, pos = CR_PROMPT + 8, CR_PROMPT + 7
+    q = bf16(b, 1, nh, hd_)
+    k, v = bf16(b, length, nkv, hd_), bf16(b, length, nkv, hd_)
+    slots = torch.arange(length, device=dev, dtype=torch.int32)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    cr_da = dict(
+        ms=cuda_ms(lambda: da_ops.decode_attention(q, k, v, slots, pos,
+                                                   kernel="on"), 50,
+                   "decode_attention"),
+        plain_ms=cuda_ms(lambda: da_ops.decode_attention(
+            q, k, v, slots, pos, kernel="off"), 20, "decode_attention plain"),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=(slots <= pos)[None, None, None, :],
+            enable_gqa=True), 50, "sdpa"))
+    cr_da["bound_ms"], cr_da["bound_by"] = bound(
+        2 * 2 * length * b * nkv * hd_, 4 * hd_ * nh * b * length,
+        BF16_OPS_PER_S)
+    for name, rec in (("flash_attention", cr_fa), ("decode_attention", cr_da)):
+        rec["library"] = ("torch.nn.functional.scaled_dot_product_attention "
+                          "(causal or masked: the same function, no softcap)")
+        log(f"[6] {name} at command-r-35b's layer (H=64 KV=8 hd=128, "
+            f"{'S=2048' if name == 'flash_attention' else 'L=2056'}): "
+            f"{json.dumps(rec)}")
     for key, rec in (("flash_attention recurrentgemma-9b local layer",
                       fa[(mq_h, mq_w)]),
                      ("decode_attention recurrentgemma-9b ring",
@@ -608,8 +716,10 @@ def attention_kernels(dev, timed: bool = True,
                       fa[(h, window)]),
                      ("decode_attention gemma2-2b ring", da[(h, "ring")])):
         log(f"[6] {key}: {json.dumps(rec)}")
-    return {"flash_attention": dict(fa[(h, None)], max_abs_err=fa_err),
-            "decode_attention": dict(da[(h, "dense")], max_abs_err=da_err)}
+    return {"flash_attention": dict(fa[(h, None)], max_abs_err=fa_err,
+                                    command_r_35b=cr_fa),
+            "decode_attention": dict(da[(h, "dense")], max_abs_err=da_err,
+                                     command_r_35b=cr_da)}
 
 
 @contextlib.contextmanager
@@ -686,120 +796,232 @@ def checked_against_plain(worst: dict,
             setattr(mod, attr, saved[name])
 
 
-def lm_full(dev) -> None:
-    """Phase 7: gemma2-2b at full width and depth, kernels vs plain. Runs
-    every check before it raises, listing each that failed."""
+@contextlib.contextmanager
+def moe_routes(record: list, agree: list | None = None):
+    """Every ``repro_torch.models.moe.route`` called inside records its
+    top-k indices in ``record`` (``agree`` None) or replays them: it takes
+    the next indices of ``record`` instead of its own choice (combine
+    weights, queue positions and drops are still computed from this run's
+    router logits) and appends (matching choices, choices) of its own
+    against them to ``agree`` as device tensors. Replaying one run's
+    choices in another keeps a near-tie that a bf16 ulp flips from routing
+    a token elsewhere, while every other difference between the runs still
+    reaches the logits."""
+    from repro_torch.models import moe
+
+    orig = moe.route
+    replay = iter(record) if agree is not None else None
+
+    def route(router_w, xt, cfg):
+        out = orig(router_w, xt, cfg)
+        if replay is None:
+            record.append(out[0])
+            return out
+        idx = next(replay)
+        agree.append(((out[0] == idx).sum(), idx.numel()))
+        logits = moe.router_logits(router_w, xt, cfg)
+        return (idx, *moe.combine(logits, idx, cfg))
+
+    moe.route = route
+    try:
+        yield
+    finally:
+        moe.route = orig
+
+
+def agreement(pairs) -> float | None:
+    """The share of matching choices over ``moe_routes``' pairs."""
+    if not pairs:
+        return None
+    return float(sum(int(a) for a, _ in pairs)) / sum(n for _, n in pairs)
+
+
+def lm_full(dev, arch: str = "gemma2-2b", phase: int = 7,
+            prompt: int = PROMPT, steps: int = DECODE_STEPS, *, cfg=None,
+            max_len: int | None = MAX_LEN,
+            modes=("checked", "on", "off", "off32", "on"),
+            trace: bool = True) -> dict:
+    """Phases 7 and 16: ``arch`` at full width (``cfg`` where its depth is
+    cut), random weights from the port's own init on the card, a
+    ``prompt``-token prefill (a VLM's patches before it, an audio model's
+    K codebooks a token) and ``steps`` teacher-forced decode steps (a
+    dense cache of ``max_len`` slots; None: the positions the run fills),
+    in ``modes``: ``checked`` with every attention kernel call also run
+    through its plain version on the same inputs (the row gate of phases
+    5-6 at every layer and step), ``on`` the kernels (timed; the last one's
+    launches are the model's), ``off`` the plain versions, ``off32`` the
+    plain versions with the attention ops in float32. The kernels' logits
+    within twice the float32 path's distance from the plain path (the
+    model's bf16 noise floor) at every step. MoE models replay the first
+    plain run's expert choices in every other gated run (``moe_routes``)
+    and gate the ``checked`` run's logits; the ``on`` run keeps its own
+    choices, whose share agreeing with the plain run's is printed. The
+    parameters ``param_count`` counts (``lm.counted_params``), init
+    seconds, peak memory, prefill and decode times; for a model the engine
+    serves (token prompts), its greedy tokens equal repeated-prefill argmax.
+    Runs every check before it raises, listing each that failed; frees the
+    model. Returns the ``on`` run's kernel launches and the timings."""
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.models import decode, lm
-    from repro_torch.serving.engine import InferenceEngine
 
-    cfg = get_config("gemma2-2b")
+    tag = f"[{phase}]"
+    cfg = cfg or get_config(arch)
+    counters = {"flash_attention": fa_kernel.flash_attention_cuda,
+                "decode_attention": da_kernel.decode_attention_cuda}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = lm.init(torch.Generator(dev).manual_seed(0), cfg)
     torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    log(f"[7] gemma2-2b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"vocab {cfg.vocab_size}, {n_params} parameters "
-        f"(param_count {cfg.param_count}), init {time.perf_counter() - t0}s")
-    rng = np.random.default_rng(17)
-    toks = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (1, PROMPT + DECODE_STEPS))).to(dev)
-    runs, worst, failed = {}, {}, []
-    for mode in ("checked", "on", "off", "off32", "on"):
+    t_init = time.perf_counter() - t0
+    n_params = lm.counted_params(model)
+    failed = []
+    log(f"{tag} {arch}: {cfg.n_layers} layers {cfg.layer_kinds[:4]}..., "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} "
+        f"KV of {cfg.head_dim}, vocab {cfg.vocab_size}, {n_params} counted "
+        f"parameters (param_count {cfg.param_count}; "
+        f"{sum(p.numel() for p in model.parameters())} in all), init "
+        f"{t_init}s, {torch.cuda.memory_allocated() / 1e9} GB allocated")
+    if n_params != cfg.param_count:
+        failed.append(f"{n_params} counted parameters, not param_count "
+                      f"{cfg.param_count}")
+    rng = np.random.default_rng(17 if phase == 7 else 1600 + len(arch))
+    audio = cfg.family == "audio"
+    shape = (1, prompt + steps) + ((cfg.n_codebooks,) if audio else ())
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).to(dev)
+    patches, n_patch = None, 0
+    if cfg.patch_stub is not None:
+        n_patch = cfg.patch_stub.n_patches
+        patches = torch.from_numpy(rng.standard_normal(
+            (1, n_patch, cfg.patch_stub.embed_dim)).astype(np.float32)).to(dev)
+    max_len = max_len or n_patch + prompt + steps
+    is_moe = cfg.moe is not None
+    runs, worst, launches, times = {}, {}, {}, {}
+    record, on_record, agree = [], [], {}
+    for mode in modes:
         kernel = "off" if mode.startswith("off") else "on"
-
-        def ctx():
-            return {"off32": float32_attention(),
-                    "checked": checked_against_plain(worst)}.get(
-                        mode, contextlib.nullcontext())
-
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with ctx():
-            logits, cache = decode.prefill(model, toks[:, :PROMPT], MAX_LEN,
-                                           kernel=kernel)
-        torch.cuda.synchronize()
-        t_pre = time.perf_counter() - t0
-        steps = [logits]
-        t0 = time.perf_counter()
-        with ctx():
-            for i in range(DECODE_STEPS):
+        with contextlib.ExitStack() as stack:
+            if mode == "off32":
+                stack.enter_context(float32_attention())
+            if mode == "checked":
+                stack.enter_context(checked_against_plain(worst))
+            if is_moe and not record:  # the first run, plain: its choices
+                if mode != "off":
+                    raise ValueError("an MoE model's first run is plain")
+                stack.enter_context(moe_routes(record))
+            elif is_moe and mode == "on":  # the timed run: its own choices
+                on_record.clear()
+                stack.enter_context(moe_routes(on_record))
+            elif is_moe:  # the gated runs replay the plain run's
+                agree[mode] = []
+                stack.enter_context(moe_routes(record, agree[mode]))
+            if mode == "on":
+                for fn in counters.values():
+                    fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = decode.prefill(model, toks[:, :prompt], max_len,
+                                           patches=patches, kernel=kernel)
+            torch.cuda.synchronize()
+            t_pre = time.perf_counter() - t0
+            out = [logits]
+            t0 = time.perf_counter()
+            for i in range(steps):
                 logits, cache = decode.decode_step(
-                    model, cache, toks[:, PROMPT + i:PROMPT + i + 1],
-                    PROMPT + i, kernel=kernel)
-                steps.append(logits)
-        torch.cuda.synchronize()
-        t_dec = (time.perf_counter() - t0) / DECODE_STEPS
-        runs[mode] = torch.stack(steps)[:, 0]
-        log(f"[7] {mode}: prefill of {PROMPT} tokens {t_pre * 1e3} "
-            f"ms, decode {t_dec * 1e3} ms per token ({DECODE_STEPS} steps)")
-    for name in ("flash_attention", "decode_attention"):
+                    model, cache, toks[:, prompt + i:prompt + i + 1],
+                    n_patch + prompt + i, kernel=kernel)
+                out.append(logits)
+            torch.cuda.synchronize()
+            t_dec = (time.perf_counter() - t0) / steps
+        if mode == "on":
+            launches = {name: fn.launches for name, fn in counters.items()}
+            times = {"prefill_ms": t_pre * 1e3, "decode_ms": t_dec * 1e3}
+        runs[mode] = torch.stack(out)[:, 0]
+        del cache
+        log(f"{tag} {mode}: prefill of {n_patch + prompt} positions "
+            f"{t_pre * 1e3} ms, decode {t_dec * 1e3} ms per token ({steps} "
+            f"steps)")
+    if is_moe:
+        own = agreement([((a == b).sum(), a.numel())
+                         for a, b in zip(on_record, record)])
+        log(f"{tag} expert choices (token, slot) agreeing with the first "
+            f"plain run's, of {sum(a.numel() for a in record)}: the timed "
+            f"kernel run's own {own}; the replayed runs' own "
+            f"{json.dumps({m: agreement(a) for m, a in agree.items()})}")
+        del record, on_record, agree
+    for name in counters:
         n, err, ratio = worst.get(name, (0, 0.0, 0.0))
-        log(f"[7] {name} at every layer and step of the kernel run ({n} "
+        log(f"{tag} {name} at every layer and step of the kernel run ({n} "
             f"calls), against its plain version on the same inputs: max abs "
             f"err {err}, worst row at {ratio} of its allowance")
-        record_gate(f"phase 7 per-call {name}", ratio if n else math.inf)
-        if n == 0 or not ratio <= 1.0:
+        record_gate(f"phase {phase} per-call {name}",
+                    ratio if n else (0.0 if cfg.mla else math.inf))
+        # MLA's attention is plain, as the JAX package serves it: deepseek
+        # launches neither kernel
+        if (n == 0 and cfg.mla is None) or not ratio <= 1.0:
             failed.append(f"{name} over the model: {n} calls, worst row at "
                           f"{ratio} of 2^-6 of its largest value")
-    on, off, off32 = runs["on"], runs["off"], runs["off32"]
-    if tuple(on.shape) != (DECODE_STEPS + 1, cfg.vocab_size) or \
+    gated = runs["checked" if is_moe else "on"]
+    off, off32 = runs["off"], runs["off32"]
+    want = (steps + 1, *((cfg.n_codebooks,) if audio else ()), cfg.vocab_size)
+    if tuple(gated.shape) != want or \
             not all(bool(torch.isfinite(x).all()) for x in runs.values()):
-        record_gate("phase 7 logits", math.inf)
-        raise AssertionError(f"logits of shape {tuple(on.shape)} or not "
-                             f"finite; " + "; ".join(failed))
-    diffs = (on - off).abs().amax(dim=-1).tolist()
-    floor = (off32 - off).abs().amax(dim=-1).tolist()
+        record_gate(f"phase {phase} logits", math.inf)
+        raise AssertionError(f"{arch}: logits of shape {tuple(gated.shape)} "
+                             f"(not {want}) or not finite; "
+                             + "; ".join(failed))
+    diffs = (gated - off).abs().flatten(1).amax(dim=1).tolist()
+    floor = (off32 - off).abs().flatten(1).amax(dim=1).tolist()
     # the kernels may differ from the plain path by no more than twice the
-    # plain path's own bf16 noise floor (the rule of tests/test_torch_lm.py)
+    # plain path's own bf16 noise floor (the rule of tests/test_torch_lm.py);
+    # a model with no attention kernel (MLA) must equal it
     bound_ = 2 * max(floor)
-    record_gate("phase 7 logits", max(diffs) / bound_)
-    log(f"[7] max abs logit difference, prefill then each decode step: "
-        f"kernels vs plain {json.dumps(diffs)}; plain in float32 vs plain "
-        f"{json.dumps(floor)}; bound 2 x {max(floor)} = {bound_}; largest "
-        f"|logit| {float(on.abs().max())}, final softcap "
-        f"{cfg.final_softcap}; kernels vs plain in float32 "
-        f"{json.dumps((on - off32).abs().amax(dim=-1).tolist())}")
+    record_gate(f"phase {phase} logits",
+                max(diffs) / bound_ if bound_ else
+                (0.0 if max(diffs) == 0 else math.inf))
+    log(f"{tag} max abs logit difference, prefill then each decode step: "
+        f"kernels vs plain {json.dumps(diffs)}; plain with float32 attention "
+        f"vs plain {json.dumps(floor)}; bound 2 x {max(floor)} = {bound_}; "
+        f"largest |logit| {float(gated.abs().max())}, final softcap "
+        f"{cfg.final_softcap}")
     if max(diffs) > bound_:
         failed.append(f"kernels' and plain path's logits differ by "
                       f"{max(diffs)} > {bound_}")
-    for name, x in (("kernels", on), ("float32 plain", off32)):
-        agree = float((x.argmax(-1) == off.argmax(-1)).float().mean())
-        log(f"[7] greedy tokens of the {name} path agree with the plain "
-            f"path's at {agree} of the {DECODE_STEPS + 1} positions")
+    for name, x in (("kernels", gated), ("float32 plain", off32)):
+        agree_tok = float((x.argmax(-1) == off.argmax(-1)).float().mean())
+        log(f"{tag} greedy tokens of the {name} path agree with the plain "
+            f"path's at {agree_tok} of the {steps + 1} positions")
+    del runs, gated, off, off32
 
-    _, cache = decode.prefill(model, toks[:, :PROMPT], MAX_LEN)
+    if trace:
+        _, cache = decode.prefill(model, toks[:, :prompt], max_len)
 
-    def decode_run():
-        c = cache
-        for i in range(DECODE_STEPS):
-            _, c = decode.decode_step(
-                model, c, toks[:, PROMPT + i:PROMPT + i + 1], PROMPT + i)
+        def decode_run():
+            c = cache
+            for i in range(steps):
+                _, c = decode.decode_step(
+                    model, c, toks[:, prompt + i:prompt + i + 1], prompt + i)
 
-    tr = traced(decode_run)
-    log(f"[7] trace of {DECODE_STEPS} decode steps (kernels): "
-        f"{json.dumps(tr)}")
-
-    eng = InferenceEngine(cfg, model, max_len=128, name="check", device=dev)
-    prompt = rng.integers(0, cfg.vocab_size, 16)
-    out = eng.generate(prompt, max_new_tokens=4)
-    cur = list(prompt)
-    for i in range(4):
-        logits, _ = decode.prefill(model, torch.tensor([cur], device=dev),
-                                   128)
-        nxt = int(logits.argmax(-1)[0])
-        if nxt != int(out[i]):
-            failed.append(f"engine token {i} is {out[i]}, repeated "
-                          f"prefill gives {nxt}")
-            break
-        cur.append(nxt)
-    log(f"[7] engine greedy tokens {out.tolist()}, repeated-prefill argmax "
-        f"{cur[len(prompt):]}")
+        tr = traced(decode_run)
+        log(f"{tag} trace of {steps} decode steps (kernels): "
+            f"{json.dumps(tr)}")
+        del cache
+    if not audio and patches is None:
+        engine_check(model, cfg, dev, rng, failed, tag)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{tag} {arch}: peak memory {peak} GB "
+        f"(torch.cuda.max_memory_allocated); kernel launches of the timed "
+        f"run {json.dumps(launches)}")
+    del model
+    torch.cuda.empty_cache()
     if failed:
-        raise AssertionError("phase 7: " + "; ".join(failed))
+        raise AssertionError(f"phase {phase} {arch}: " + "; ".join(failed))
+    return dict(launches=launches, init_s=t_init, peak_gb=peak, **times)
 
 
 SSD_TOL = 5e-3      # tests/test_kernels.py: |err| <= 5e-3 + 5e-3 |plain|
@@ -1126,25 +1348,39 @@ def recurrent_full(dev, arch: str, phase: int, prompt: int,
 
 def engine_check(model, cfg, dev, rng, failed: list, tag: str) -> None:
     """The engine's greedy tokens (prefill, then decode from its cache)
-    equal repeated-prefill argmax."""
+    equal repeated-prefill argmax. An MoE model runs the check with its
+    capacity factor raised so that no token is dropped: decode never drops
+    one (a slot an expert for each batch row, as in the JAX package), and
+    the prefill of the grown prompt would drop the new token where an
+    expert's queue is full, which is another function."""
+    import dataclasses
+
     import torch
 
     from repro_torch.models import decode
     from repro_torch.serving.engine import InferenceEngine
 
-    eng = InferenceEngine(cfg, model, max_len=128, name="check", device=dev)
-    prompt_ids = rng.integers(0, cfg.vocab_size, 16)
-    out = eng.generate(prompt_ids, max_new_tokens=4)
-    cur = list(prompt_ids)
-    for i in range(4):
-        logits, _ = decode.prefill(model, torch.tensor([cur], device=dev),
-                                   128)
-        nxt = int(logits.argmax(-1)[0])
-        if nxt != int(out[i]):
-            failed.append(f"{cfg.name}: engine token {i} is {out[i]}, "
-                          f"repeated prefill gives {nxt}")
-            break
-        cur.append(nxt)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k + 1))
+    saved, model.cfg = model.cfg, cfg
+    try:
+        eng = InferenceEngine(cfg, model, max_len=128, name="check",
+                              device=dev)
+        prompt_ids = rng.integers(0, cfg.vocab_size, 16)
+        out = eng.generate(prompt_ids, max_new_tokens=4)
+        cur = list(prompt_ids)
+        for i in range(4):
+            logits, _ = decode.prefill(model, torch.tensor([cur], device=dev),
+                                       128)
+            nxt = int(logits.argmax(-1)[0])
+            if nxt != int(out[i]):
+                failed.append(f"{cfg.name}: engine token {i} is {out[i]}, "
+                              f"repeated prefill gives {nxt}")
+                break
+            cur.append(nxt)
+    finally:
+        model.cfg = saved
     log(f"{tag} engine greedy tokens {out.tolist()}, repeated-prefill argmax "
         f"{cur[len(prompt_ids):]}")
 
@@ -1182,6 +1418,67 @@ def serve_path(arch: str, phase: int, counters: dict) -> dict:
                              f"stats {served['stats']}")
     torch.cuda.empty_cache()
     return launches
+
+
+# Phase 16: the other seven architectures at full width, one at a time
+# (arch, prompt tokens; llava's prompt follows its 2,880 patches, musicgen's
+# are frames of 4 codebooks), each with ZOO_STEPS teacher-forced steps.
+# gemma3's 2048 tokens pass its window of 1024: its ring wraps.
+ZOO_RUNS = (("gemma3-12b", CR_PROMPT),
+            ("nemotron-4-15b", CR_PROMPT), ("command-r-35b", CR_PROMPT),
+            ("musicgen-large", 1024), ("llava-next-34b", 16),
+            ("granite-moe-3b-a800m", CR_PROMPT), ("deepseek-v3-671b", 1024))
+ZOO_STEPS = 8
+ZOO_SERVED = ("command-r-35b", "granite-moe-3b-a800m")
+
+
+def zoo_config(arch: str):
+    """``arch``'s full config; deepseek-v3-671b's cut to a depth of 3 (one
+    dense MLA layer and two MLA-MoE layers, 50.9 GB at full width: the
+    whole model's 1,342 GB does not fit one card)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if arch == "deepseek-v3-671b":
+        cfg = dataclasses.replace(cfg, n_layers=3, prefix=("mla",),
+                                  moe=dataclasses.replace(cfg.moe,
+                                                          first_dense=1))
+    return cfg
+
+
+def zoo_models(dev, counters: dict | None,
+               raise_on_fail: bool = True) -> dict:
+    """Phase 16: each of ``ZOO_RUNS`` through ``lm_full`` (every model
+    freed before the next is made), then ``launch.serve.main`` on each of
+    ``ZOO_SERVED`` (``serve_path``; both attention kernels must launch);
+    ``counters`` None skips the serving (``--gates``). Runs every model
+    before it raises. Returns the models' and the served runs' kernel
+    launches."""
+    t_phase = time.perf_counter()
+    failed, model_launches, served = [], {}, {}
+    for arch, prompt in ZOO_RUNS:
+        try:
+            out = lm_full(dev, arch, 16, prompt, ZOO_STEPS,
+                          cfg=zoo_config(arch), max_len=None,
+                          modes=("off", "checked", "on", "off32"),
+                          trace=False)
+            model_launches[arch] = out["launches"]
+        except AssertionError as exc:
+            failed.append(str(exc))
+            log(f"    gate failed: {exc}")
+    for arch in ZOO_SERVED if counters is not None else ():
+        served[arch] = {k: v for k, v in serve_path(arch, 16,
+                                                    counters).items()
+                        if k in ("flash_attention", "decode_attention")}
+        if min(served[arch].values()) <= 0:
+            failed.append(f"an attention kernel of {arch}'s served path "
+                          f"never launched: {served[arch]}")
+    log(f"[16] phase 16: {time.perf_counter() - t_phase}s (budget 200 s)")
+    if failed and raise_on_fail:
+        raise AssertionError("phase 16: " + "; ".join(failed))
+    return {"model_launches": model_launches, "served_launches": served}
 
 
 def bit_gate(gate: str, equal: bool, msg: str, raise_on_fail: bool) -> None:
@@ -1280,8 +1577,9 @@ ENGINE_FIGURES = ("fig1_queueing", "fig2_threshold", "fig3_random",
 # 16-bit counters' range in fig1's 80k steps, the fitted-table grids of
 # fig5, fig15 and the cross-system figure, fig2's 1,440 cells). fig3 and
 # fig4 take fig2's template, flags and tile at 40k steps and are held at
-# their smoke size: at full size their twelve plain chunks (480k steps,
-# paced by the host) would nearly double the comparisons' time.
+# their smoke size: at full size their twelve plain chunks (480k steps;
+# the plain version replays one captured CUDA graph a step, ~80 us) would
+# add ~40 s.
 FULL_SIZE_PARITY = ("fig1_queueing", "fig2_threshold", "fig5_diskdb",
                     "fig12_memcached", "fig15_dns", "fig_cross_system")
 NETSIM_SLOTS = 1024  # slots of fig14's headline run timed for slots/s
@@ -2077,7 +2375,8 @@ def main(argv=None) -> int:
                                  "CUDA card (see the module's docstring).")
     ap.add_argument("--gates", nargs="*", type=int, metavar="PHASE",
                     help="run phase 1 and the gates of phases 2, 3, 5, 6, "
-                         "7, 9, 11 and 15 (or of the phases named), recording "
+                         "7, 9, 11 and 15 (or of the phases named, 16 "
+                         "among them), recording "
                          "every gate instead of stopping at the first that "
                          "fails; the last line is the gates' worst "
                          "multiples")
@@ -2180,6 +2479,8 @@ def main(argv=None) -> int:
             except RuntimeError as exc:  # a launch that died
                 record_gate("phase 15 launch", math.inf)
                 log(f"    gate failed: {exc}")
+        if 16 in phases:
+            zoo_models(dev, None, raise_on_fail=False)
         print(json.dumps({"gates": GATES}), flush=True)
         return 0
 
@@ -2495,6 +2796,9 @@ def main(argv=None) -> int:
 
     # --------------------------------------------------------------- 15
     sharded_launches = sharded_sweep(dev, src, phase4)
+
+    # --------------------------------------------------------------- 16
+    zoo = zoo_models(dev, counters)
     check_imports()
 
     # ----------------------------------------------------------- output
@@ -2528,7 +2832,12 @@ def main(argv=None) -> int:
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": f"src/repro/kernels/{pkg}/kernel.py:{line}",
             "launches": launches[name],
-            "serving_launches": serving_launches[name], **a})
+            "serving_launches": serving_launches[name],
+            "model_launches": {arch: n[name] for arch, n in
+                               zoo["model_launches"].items()},
+            "model_served_launches": {arch: n[name] for arch, n in
+                                      zoo["served_launches"].items()},
+            **a})
     for name, line in (("ssd_scan", 62), ("rglru_scan", 46)):
         record["kernels"].append({
             "name": name, "route": "cuda",

@@ -1,8 +1,17 @@
 """Architecture registry: importing this package registers every config
-the port can run (the other architectures come with their slices, ROADMAP
-queue 1)."""
-from repro_torch.configs import (gemma2_2b, mamba2_370m,  # noqa: F401
-                                 recurrentgemma_9b)
+of the JAX package (copies of its ``configs/*.py``)."""
+from repro_torch.configs import (  # noqa: F401
+    command_r_35b,
+    deepseek_v3_671b,
+    gemma2_2b,
+    gemma3_12b,
+    granite_moe_3b_a800m,
+    llava_next_34b,
+    mamba2_370m,
+    musicgen_large,
+    nemotron_4_15b,
+    recurrentgemma_9b,
+)
 from repro_torch.configs.base import (  # noqa: F401
     ModelConfig,
     get_config,

@@ -1,10 +1,9 @@
 """Config system: frozen dataclasses + an architecture registry.
 
 A copy of the JAX package's ``configs/base.py`` (it imports no JAX). Every
-architecture the port can run registers a full-size config and a
-``smoke()`` reduction of the same family (used by the CPU tests). The
-dry-run's input shapes and cells are not ported yet (ROADMAP queue 1
-item 12).
+architecture registers a full-size config and a ``smoke()`` reduction of
+the same family (used by the CPU tests). The dry-run's input shapes and
+cells are not ported yet (ROADMAP queue 1 items 14e and 15).
 """
 from __future__ import annotations
 

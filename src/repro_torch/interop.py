@@ -3,8 +3,12 @@
 What crosses from the reference: a chunk's sampled inputs
 (``unit_gaps`` or ``cum``, ``servers``, ``services``), the per-cell
 carry (``free``, ``ssum``, ``comp``, ``cnt``, ``hist``), the cell-plan
-coordinates, an LM's weights (``lm_params_from_numpy``) and its decode
-caches (``lm_cache_from_numpy`` / ``lm_cache_to_numpy``). Everything
+coordinates, an LM's weights (``lm_params_from_numpy``: every leaf of
+the JAX tree under its own dotted path, whatever the family — untied
+heads, codebook tables and heads, ``patch_proj``, the MoE's router and
+expert stacks, the MLA projections, ``mtp``) and its decode caches
+(``lm_cache_from_numpy`` / ``lm_cache_to_numpy``: attention, MLA latent,
+recurrent and SSD caches alike). Everything
 arrives as numpy arrays (the tests pull them out of JAX with
 ``np.asarray``), so this module needs neither JAX nor ``repro``.
 
@@ -48,16 +52,17 @@ def to_tensor(x, device="cuda") -> torch.Tensor:
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
-    """A tensor as a numpy array of the same dtype and bits; bf16 as
+    """A copy of a tensor as a numpy array of the same dtype and bits
+    (never a view: the port updates its decode caches in place); bf16 as
     numpy ``bfloat16`` where numpy knows it, else as float32 (exact)."""
     t = t.detach().cpu()
     if t.dtype != torch.bfloat16:
-        return t.numpy()
+        return t.numpy().copy()
     try:
         bf16 = np.dtype("bfloat16")
     except TypeError:
         return t.to(torch.float32).numpy()
-    return t.view(torch.uint16).numpy().view(bf16)
+    return t.view(torch.uint16).numpy().view(bf16).copy()
 
 
 def carry_from_numpy(free, ssum, comp, cnt, hist, device="cuda"):

@@ -29,7 +29,10 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask = j <= i
     if window is not None:
         mask &= j > i - window
-    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    # in place: at llava-next-34b's 56 heads over 2,896 positions one
+    # float32 score tensor is 1.9 GB, beside a model of 68.8 GB
+    scores.masked_fill_(~mask, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    del scores
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
     return out.reshape(b, s, h, hd)

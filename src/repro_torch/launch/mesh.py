@@ -28,8 +28,9 @@ place cell placement is declared: everything keyed by the cell axis is
 split into the slots' contiguous blocks, and the ``put_*`` constructors
 return, for each slot of THIS process, its block on its device.
 
-``make_production_mesh`` / ``make_test_mesh`` belong to the LM substrate
-and are not ported yet (ROADMAP queue 1 item 14).
+``make_production_mesh`` / ``make_test_mesh`` belong to the LM
+substrate's training and expert parallelism, which are not ported yet
+(ROADMAP queue 1 items 14d and 14e).
 """
 from __future__ import annotations
 

@@ -2,10 +2,12 @@
 
 The port of ``repro.launch.serve``: the same command line, plus
 ``--device`` (``cuda`` unless the CPU is asked for). ``--arch`` is any
-architecture the port registers (gemma2-2b, mamba2-370m,
-recurrentgemma-9b); on the card the replicas run its kernels
-(attention, ``ssd_scan``, ``rglru_scan``). Example (CPU, smoke model, 4
-replicas, redundancy on):
+registered architecture; on the card the replicas run its kernels
+(attention, ``ssd_scan``, ``rglru_scan``). The engine feeds token
+prompts, as the JAX engine does, so musicgen-large (audio) and
+llava-next-34b (patches) raise there and are served through
+``repro_torch.models.decode``. Example (CPU, smoke model, 4 replicas,
+redundancy on):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \\
       --smoke --replicas 4 --requests 64 --max-k 2 --device cpu

@@ -33,10 +33,13 @@ def truncated_normal(shape, scale: float, generator: torch.Generator,
     ``jax.random.truncated_normal(key, -2, 2, shape, f32) * scale``)."""
     dev = generator.device
     lo, hi = (0.5 * (1.0 + math.erf(b / math.sqrt(2.0))) for b in (-2.0, 2.0))
-    u = torch.rand(shape, generator=generator, device=dev,
+    x = torch.rand(shape, generator=generator, device=dev,
                    dtype=torch.float32)
-    x = torch.erfinv((2.0 * (lo + u * (hi - lo)) - 1.0).clamp_(-1.0, 1.0))
-    x.mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0).mul_(scale)
+    # in place, one float32 buffer: a 256,000 x 8,192 head or a (256,
+    # 7168, 2048) expert stack is drawn beside a model that nearly fills
+    # the card
+    x.mul_(hi - lo).add_(lo).mul_(2.0).sub_(1.0).clamp_(-1.0, 1.0)
+    x.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0).mul_(scale)
     return x.to(dtype)
 
 
@@ -183,20 +186,24 @@ def mlp(p: MLP, x: torch.Tensor, act: str) -> torch.Tensor:
 
 
 class Embedding(nn.Module):
-    """``table`` (vocab, d)."""
+    """``table`` (vocab, d), or (K, vocab, d) for K codebooks (audio)."""
 
     def __init__(self, vocab: int, d: int, device=None,
-                 dtype=DEFAULT_PARAM_DTYPE):
+                 dtype=DEFAULT_PARAM_DTYPE, n_tables: int = 0):
         super().__init__()
-        self.table = nn.Parameter(torch.empty((vocab, d), device=device,
+        shape = (n_tables, vocab, d) if n_tables else (vocab, d)
+        self.table = nn.Parameter(torch.empty(shape, device=device,
                                               dtype=dtype),
                                   requires_grad=False)
 
 
 def init_embedding(generator: torch.Generator, vocab: int, d: int,
-                   dtype=DEFAULT_PARAM_DTYPE) -> Embedding:
-    p = Embedding(vocab, d, generator.device, dtype)
-    p.table.copy_(truncated_normal((vocab, d), 1.0, generator, dtype))
+                   dtype=DEFAULT_PARAM_DTYPE, n_tables: int = 0) -> Embedding:
+    """A table of standard-normal rows; with ``n_tables`` one (vocab, d)
+    table per codebook, stacked."""
+    p = Embedding(vocab, d, generator.device, dtype, n_tables)
+    for t in (p.table if n_tables else [p.table]):
+        t.copy_(truncated_normal((vocab, d), 1.0, generator, dtype))
     return p
 
 
@@ -214,10 +221,27 @@ def embed(p: Embedding, tokens: torch.Tensor, scale: bool,
     return x
 
 
+# Rows of the head table widened to float32 at a time (512 MB): a whole
+# 256,000 x 8,192 table would take 8.4 GB beside the model.
+LOGIT_CHUNK_ELEMS = 2**27
+
+
 def logits_from_hidden(table: torch.Tensor, h: torch.Tensor,
                        final_cap: float | None = None) -> torch.Tensor:
     """h (..., D) @ table.T (V, D) -> (..., V), float32 out: the bf16
     operands are widened exactly and multiplied in float32, as JAX's
-    ``preferred_element_type=float32`` product does."""
-    out = torch.matmul(h.to(torch.float32), table.to(torch.float32).t())
+    ``preferred_element_type=float32`` product does. ``table`` may be a
+    transposed view (an untied head stored (D, V)); it is widened a block
+    of rows at a time, so no float32 copy of the whole table is made."""
+    h32 = h.to(torch.float32)
+    v, d = table.shape
+    rows = max(1, LOGIT_CHUNK_ELEMS // d)
+    if rows >= v:
+        out = torch.matmul(h32, table.to(torch.float32).t())
+    else:
+        out = torch.empty((*h.shape[:-1], v), dtype=torch.float32,
+                          device=h.device)
+        for i in range(0, v, rows):
+            out[..., i:i + rows] = torch.matmul(
+                h32, table[i:i + rows].to(torch.float32).t())
     return softcap(out, final_cap)

@@ -13,7 +13,10 @@ and so serves through its jnp reference, this engine takes ``kernel=``
 (``repro_torch.kernels.dispatch``): under the default ``"auto"`` a CUDA
 model runs prefill through its kernels (``flash_attention``,
 ``ssd_scan``, ``rglru_scan``, by layer kind) and every decode step of its
-attention layers through the ``decode_attention`` kernel.
+attention layers through the ``decode_attention`` kernel. As the JAX
+engine, it feeds (1, S) token prompts: an audio model (token grids) or a
+VLM (patch embeddings) is refused and served through
+``repro_torch.models.decode``.
 """
 from __future__ import annotations
 
@@ -56,6 +59,11 @@ class InferenceEngine:
     def __init__(self, cfg: ModelConfig, model: LM, max_len: int = 128,
                  name: str = "replica0", device="cuda",
                  kernel: str = "auto"):
+        if cfg.family == "audio" or cfg.patch_stub is not None:
+            raise ValueError(
+                f"{cfg.name}: the engine feeds (1, S) token prompts, as the "
+                f"JAX engine does; an audio model or a VLM is served "
+                f"through repro_torch.models.decode")
         dev = resolve_device(device)
         w = model.embed.table
         if w.device.type != dev.type or (dev.index is not None

@@ -337,6 +337,51 @@ def test_decode_attention_kernel_splits(cuda_device, case):
         _assert_attention_close(got, want)
 
 
+@pytest.mark.parametrize("h, kv, hd", [
+    # the heads of nemotron-4-15b, llava-next-34b, command-r-35b (groups of
+    # 6, 7 and 8 at hd 128), musicgen-large (MHA: one query head a KV head)
+    # and granite-moe-3b-a800m (3 at hd 64)
+    (48, 8, 128), (56, 8, 128), (64, 8, 128), (32, 32, 64), (24, 8, 64)])
+@pytest.mark.parametrize("qs", [1, 8])
+def test_attention_kernels_at_the_model_zoo_groups(cuda_device, h, kv, hd,
+                                                   qs):
+    """Both kernels, dense and causal, at the head shapes of the models
+    that serve them beyond gemma2-2b and recurrentgemma-9b: a partial last
+    query tile (S = 300) and a dense cache of 700 slots at pos 650."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    rng = np.random.default_rng(h + kv + hd)
+    q, k, v = (_bf16(rng, (1, 300, n, hd), cuda_device) for n in (h, kv, kv))
+    got, want = (fa_ops.flash_attention(qs * q, k, v, kernel=mode)
+                 for mode in ("on", "off"))
+    _assert_attention_close(got, want, absolute=qs == 1)
+    q = qs * _bf16(rng, (1, 1, h, hd), cuda_device)
+    k, v = (_bf16(rng, (1, 700, kv, hd), cuda_device) for _ in range(2))
+    s = torch.arange(700, dtype=torch.int32, device=cuda_device)
+    slots = torch.where(s <= 650, s, -1)
+    got, want = (da_ops.decode_attention(q, k, v, slots, 650, kernel=mode)
+                 for mode in ("on", "off"))
+    _assert_attention_close(got, want, absolute=qs == 1)
+
+
+def test_head_dim_outside_the_kernels_raises_not_falls_back(cuda_device):
+    """command-r-35b's smoke config has head_dim 8, which no kernel takes:
+    under ``kernel="auto"`` its prefill raises on the card (no quiet route
+    to the plain version), and it runs with ``kernel="off"`` asked for."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import decode, lm
+    cfg = get_smoke_config("command-r-35b")
+    assert cfg.head_dim == 8
+    model = lm.init(torch.Generator(cuda_device).manual_seed(0), cfg)
+    toks = torch.zeros((1, 12), dtype=torch.long, device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        decode.prefill(model, toks, 32)
+    logits, cache = decode.prefill(model, toks, 32, kernel="off")
+    logits, _ = decode.decode_step(model, cache, toks[:, :1], 12,
+                                   kernel="off")
+    assert bool(torch.isfinite(logits).all())
+
+
 @pytest.mark.parametrize("op", ["flash_attention", "decode_attention",
                                 "ssd_scan", "rglru_scan"])
 def test_kernels_launch_once_per_call(cuda_device, op):

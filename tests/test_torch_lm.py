@@ -195,12 +195,30 @@ def test_own_init_draws_reference_distributions():
     assert model.embed.table.dtype == layers.DEFAULT_PARAM_DTYPE
 
 
-@pytest.mark.parametrize("kind", ["mla", "global_moe", "mla_moe"])
-def test_unported_kinds_raise(kind):
+@pytest.mark.parametrize("kind, arch", [("mla", "deepseek-v3-671b"),
+                                        ("global_moe", "granite-moe-3b-a800m"),
+                                        ("mla_moe", "deepseek-v3-671b")])
+def test_moe_and_mla_kinds_build_and_prefill(kind, arch):
+    """The kinds that raised before the MoE and MLA layers were ported
+    build now: two layers of ``kind`` in the gemma2-2b smoke model (with
+    the MoE and MLA sub-configs of ``arch``'s smoke model), then one
+    prefill and two decode steps."""
+    sub = get_smoke_config(arch)
     cfg = dataclasses.replace(get_smoke_config("gemma2-2b"), pattern=(kind,),
-                              n_layers=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        lm.init(torch.Generator("cpu").manual_seed(0), cfg)
+                              n_layers=2, moe=sub.moe, mla=sub.mla)
+    model = lm.init(torch.Generator("cpu").manual_seed(0), cfg)
+    mixer, mlp_kind = lm.KIND_TABLE[kind]
+    assert [(b.kind, b.mlp_kind) for b in model.blocks] == [
+        (mixer, mlp_kind)] * 2
+    toks = torch.from_numpy(prompt(6, 11, cfg.vocab_size))
+    logits, cache = decode.prefill(model, toks, MAX_LEN)
+    assert logits.shape == (1, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    assert set(cache[0]) == ({"c_kv", "k_rope"} if mixer == "mla"
+                             else {"k", "v", "pos"})
+    for i in range(2):
+        logits, _ = decode.decode_step(model, cache, toks[:, i:i + 1], 11 + i)
+        assert bool(torch.isfinite(logits).all())
 
 
 @pytest.mark.parametrize("kind, arch", [("ssd", "mamba2-370m"),
@@ -239,7 +257,9 @@ def test_new_modules_import_neither_jax_nor_repro():
             "repro_torch.kernels.decode_attention.ops",
             "repro_torch.models.ssd", "repro_torch.models.rglru",
             "repro_torch.kernels.ssd_scan.ops",
-            "repro_torch.kernels.rglru_scan.ops"]
+            "repro_torch.kernels.rglru_scan.ops",
+            "repro_torch.models.lm", "repro_torch.models.moe",
+            "repro_torch.models.mla", "repro_torch.interop"]
     code = ("import sys, importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or"

@@ -4,6 +4,7 @@
     python3 chip_smoke.py              # every phase; needs one card
     python3 chip_smoke.py --gates      # phases 1-3, 5-7, 9, 11, 15, gates recorded
     python3 chip_smoke.py --gates 16   # phase 16 alone (the seven models)
+    python3 chip_smoke.py --gates 17   # phase 17 alone (training)
     python3 chip_smoke.py --faults     # --gates on planted faults F9-F18
     python3 chip_smoke.py --faults F12 F13 F14   # only those (+ control)
 
@@ -171,7 +172,31 @@ nonzero:
      greedy tokens against repeated prefill for the token-prompt models;
      then ``launch.serve.main`` serves 8 requests of command-r-35b and of
      granite-moe-3b-a800m on 2 hedged replicas, both attention kernels
-     launching in each.
+     launching in each;
+ 17. training (``TRAIN_RUNS``; seed 0, Markov batches from the port's
+     ``data.pipeline``): (a) gemma2-2b at full width and depth, its
+     evaluation loss over 4608 tokens under ``torch.no_grad()`` with the
+     kernels (``flash_attention`` launched once a layer, 26), with their
+     plain versions and with the attention ops in float32: the kernels'
+     loss within twice the plain path's float32 distance, at least
+     ``EVAL_LOSS_RTOL`` of the loss; (b) 4 training steps of it through
+     ``repro_torch.launch.train.main`` (AdamW, lr 1e-3, no checkpoint):
+     losses and grad norms finite, no kernel launched (the gradient takes
+     the plain versions), after the first step every parameter's
+     gradient finite and not all zero and every float32 master moved by
+     at most lr (1 + wd |p|) plus rounding; step times, tokens/s, peak
+     memory, model FLOPs utilisation and one traced step's idle share;
+     (c) mamba2-370m (48 layers) over 2 x 1024 tokens likewise,
+     ``ssd_scan`` launched 48 times, the float32 yardstick the model
+     widened; (d) the port's ``train_100m`` example (105M, 8 x 256
+     tokens, hedged loader k=2) for 60 steps under deterministic
+     algorithms, checkpoints every 20: the loss falls by at least 0.3;
+     a second run fails at step 30 by the injected hook and resumes from
+     step 20, its parameters and optimizer state equal to the first
+     run's bit for bit; 12 steps with the deterministic algorithms off,
+     for what they cost a step; (e) the example's trainable model refuses
+     the kernels: ``loss_fn(kernel="auto")`` under grad raises, nothing
+     launched.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. A kernel's ``launches`` there are those
@@ -181,14 +206,16 @@ of its main path's run (phase 4, 8, 10 or 12; the attention kernels'
 ``figure_launches`` those of phase 13's modules, ``serving_launches``
 (``cell_update`` and the attention kernels) phase 14's, and
 ``cell_update``'s ``sharded_launches`` phase 15's (the spawned
-processes' included); ``hist_accum``,
+processes' included), and ``training_eval_launches`` (the attention
+kernels, ``ssd_scan`` and ``rglru_scan``) phase 17's evaluation losses;
+``hist_accum``,
 which no main path launches, reads 0 and gives its launches in phase 2 as
 ``check_launches``. Needs CUDA and the repository's
 ``src/`` beside this script (or ``--src``); imports nothing of JAX or of
 ``repro``. ``--gates`` records every gate of phases 2, 3, 5-7, 9, 11 and
-15, and of 16 where it is named (the worst multiple of its allowance; a
-bit gate as 0 or inf; phase 15 runs its own unsharded references; phase
-16 skips its serving) instead of
+15, and of 16 and 17 where they are named (the worst multiple of its
+allowance; a bit gate as 0 or inf; phase 15 runs its own unsharded
+references; phase 16 skips its serving) instead of
 stopping at the first that fails, and prints them as its last line;
 ``--faults`` runs it on a copy of the package for each planted fault of
 ``FAULTS`` over the phases that hold its kernel, the unedited package
@@ -199,6 +226,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1481,6 +1509,408 @@ def zoo_models(dev, counters: dict | None,
     return {"model_launches": model_launches, "served_launches": served}
 
 
+# Phase 17: training. (arch, sequence length, batch) of the full-width runs:
+# the evaluation loss three ways, then TRAIN_STEPS steps through
+# launch.train.main; then the port's train_100m example.
+TRAIN_RUNS = (("gemma2-2b", PROMPT, 1), ("mamba2-370m", 1024, 2))
+TRAIN_STEPS = 4
+TRAIN_LR = 1e-3
+TRAIN_SMOKE = False  # the smoke configs (the CPU rehearsal)
+# the example: EXAMPLE_STEPS steps with a checkpoint every EXAMPLE_EVERY,
+# a run that fails at EXAMPLE_FAIL and resumes, then EXAMPLE_TIMED steps
+# with the deterministic algorithms off
+EXAMPLE_ARGS = ["--seq-len", "256", "--batch", "8"]
+EXAMPLE_STEPS, EXAMPLE_EVERY, EXAMPLE_FAIL, EXAMPLE_TIMED = 60, 20, 30, 12
+EXAMPLE_LR, EXAMPLE_FALL = 3e-4, 0.3  # the example's lr; the JAX test's fall
+# the evaluation loss gate's least allowance, relative to the plain loss,
+# where twice the plain path's float32-vs-bf16 distance is smaller (a mean
+# over thousands of tokens, whose rounding errors cancel): the CPU tests'
+# loss tolerance, at the JAX package's own noise (tests/test_torch_train_
+# lm.py). On an H100 the kernels' loss sat 4.6e-5 (gemma2-2b) and 3.2e-4
+# (mamba2-370m) of the loss from the plain path's.
+EVAL_LOSS_RTOL = 1e-3
+
+
+def _kernel_layers(cfg) -> dict:
+    """Per kernel, the layers whose forward launches it once."""
+    kinds = cfg.layer_kinds
+    return {"flash_attention": sum(k in ("global", "local", "global_moe")
+                                   for k in kinds),
+            "ssd_scan": sum(k == "ssd" for k in kinds),
+            "rglru_scan": sum(k == "rec" for k in kinds)}
+
+
+def _attention_flops(cfg, seq: int, batch: int) -> float:
+    """The attention products a training step needs beyond 6 x params x
+    tokens: Q K^T and P V over the causal pairs (a local layer's within
+    its window), 4 flops a pair, head and head dim, times 3 for forward
+    and backward."""
+    pairs = {"global": seq * (seq + 1) / 2}
+    w = min(cfg.window, seq)
+    pairs["local"] = w * (w + 1) / 2 + (seq - w) * w
+    n = sum(pairs.get("global" if k == "global_moe" else k, 0.0)
+            for k in cfg.layer_kinds)
+    return 3 * 4 * n * cfg.n_heads * cfg.head_dim * batch
+
+
+def eval_loss(dev, arch: str, cfg, seq: int, batch: int, counters: dict,
+              failed: list) -> dict:
+    """Phase 17 (a)/(c): ``lm.loss_fn`` of a fresh model (seed 0) on a
+    Markov batch, under ``torch.no_grad()``, with the kernels
+    (``kernel="auto"``, launches counted), their plain versions
+    (``"off"``) and the plain versions in float32 (the attention ops, or
+    for a model without attention the whole model widened): the kernels'
+    loss within twice the plain path's float32 distance, at least
+    ``EVAL_LOSS_RTOL`` of it; each kernel of the model's layers launched
+    once a layer."""
+    import copy
+
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, MarkovSource
+    from repro_torch.models import lm
+
+    model = lm.init(torch.Generator(dev).manual_seed(0), cfg)
+    src = MarkovSource(cfg, DataConfig(seq_len=seq, batch_size=batch))
+    tb = {k: torch.from_numpy(v).to(dev) for k, v in src.batch_at(0).items()}
+    want = {k: n for k, n in _kernel_layers(cfg).items() if n}
+    attn = "flash_attention" in want
+    losses, ms, launches = {}, {}, {}
+    with torch.no_grad():
+        for mode in ("auto", "off", "off32"):
+            m, ctx = model, contextlib.nullcontext()
+            if mode == "off32":
+                if attn:
+                    ctx = float32_attention()
+                else:
+                    m = copy.deepcopy(model).float()
+            for fn in counters.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with ctx:
+                _, metrics = lm.loss_fn(m, tb, kernel="auto" if
+                                        mode == "auto" else "off")
+            torch.cuda.synchronize()
+            ms[mode] = (time.perf_counter() - t0) * 1e3
+            losses[mode] = float(metrics["loss"])
+            if mode == "auto":
+                launches = {k: fn.launches for k, fn in counters.items()}
+            del m
+    diff = abs(losses["auto"] - losses["off"])
+    floor = abs(losses["off32"] - losses["off"])
+    bound_ = max(2 * floor, EVAL_LOSS_RTOL * abs(losses["off"]))
+    record_gate(f"phase 17 {arch} eval loss", diff / bound_)
+    log(f"[17] {arch} evaluation loss over {batch} x {seq} tokens "
+        f"(no_grad): kernels {losses['auto']}, plain {losses['off']}, plain "
+        f"in float32 {losses['off32']}; |kernels - plain| {diff}, bound "
+        f"max(2 x {floor}, {EVAL_LOSS_RTOL} x |plain|) = {bound_}; ms "
+        f"{json.dumps(ms)}; kernel launches {json.dumps(launches)} (one a "
+        f"layer: {json.dumps(want)})")
+    if not all(math.isfinite(x) for x in losses.values()) or diff > bound_:
+        failed.append(f"{arch} evaluation loss: kernels {losses['auto']} vs "
+                      f"plain {losses['off']}, bound {bound_}")
+    for name, n in want.items():  # the CPU (a rehearsal) launches none
+        if launches.get(name) != (n if dev.type == "cuda" else 0):
+            failed.append(f"{arch} evaluation loss launched {name} "
+                          f"{launches.get(name)} times, not {n}")
+    del model
+    torch.cuda.empty_cache()
+    return {"loss": losses, "ms": ms, "launches": launches}
+
+
+def first_step_check(dev, model, opt_state, lr: float, wd: float) -> dict:
+    """After a run's first step (seed 0): every parameter's gradient is
+    finite and not all zero, and AdamW moved each float32 master from the
+    initial weights (drawn again from the seed) by at most lr (1 + wd |p|)
+    plus rounding: the worst share of that allowance."""
+    import torch
+
+    from repro_torch.models import lm
+
+    p0 = dict(lm.init(torch.Generator(dev).manual_seed(0),
+                      model.cfg).named_parameters())
+    bad, worst = [], 0.0
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            g = p.grad
+            if g is None or not bool(torch.isfinite(g).all()) or \
+                    not bool((g != 0).any()):
+                bad.append(name)
+            w0 = p0.pop(name).float()
+            allow = (lr * (1 + wd * w0.abs()) * (1 + 1e-5)
+                     + w0.abs() * 2.0**-23)
+            worst = max(worst, float(((opt_state["master"][name] - w0).abs()
+                                      / allow).max()))
+    return {"bad_grads": bad, "first_step_move": worst}
+
+
+def train_run(dev, label: str, entry, argv: list[str], counters: dict,
+              failed: list, lr: float, wd: float,
+              check_first: bool = True) -> dict:
+    """``entry(argv, on_step=...)`` (``launch.train.main`` or the
+    example's ``main``) with the kernels' launch counts set to 0 just
+    before and read just after (training launches none: its gradient
+    takes the plain versions), each step timed on the host clock from its
+    batch to its end (``synchronize``), the peak memory, and after step 0
+    ``first_step_check``. Returns the trainer's result with ``step_s``
+    and the checks."""
+    import torch
+
+    from repro_torch.training import train_loop
+
+    marks: dict[int, list[float]] = {}
+    checks: dict = {}
+    peak = [0.0]
+    orig_batch = train_loop.Trainer._batch
+
+    def batch(self, step):
+        torch.cuda.synchronize()
+        marks[step] = [time.perf_counter()]
+        return orig_batch(self, step)
+
+    def on_step(step, model, opt_state, metrics):
+        torch.cuda.synchronize()
+        marks[step].append(time.perf_counter())
+        if step == 0 and check_first:
+            peak[0] = torch.cuda.max_memory_allocated()
+            checks.update(first_step_check(dev, model, opt_state, lr, wd))
+            torch.cuda.reset_peak_memory_stats()
+
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # what earlier phases still hold, counted in the peak
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    train_loop.Trainer._batch = batch
+    try:
+        out = entry(argv, on_step=on_step)
+    finally:
+        train_loop.Trainer._batch = orig_batch
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak_gb = max(peak[0], torch.cuda.max_memory_allocated()) / 1e9
+    steps = sorted(marks)
+    step_s = [marks[s][1] - marks[s][0] for s in steps]
+    hist = out["history"]
+    finite = all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                 for h in hist)
+    log(f"[17] {label}: steps {steps[0]}-{steps[-1]}, step s "
+        f"{json.dumps(step_s)} (host clock, batch to synchronize), peak "
+        f"memory {peak_gb} GB ({held_gb} GB held before the run); losses "
+        f"{json.dumps([h['loss'] for h in hist])}, grad norms "
+        f"{json.dumps([h['grad_norm'] for h in hist])}; kernel launches "
+        f"{json.dumps(launches)}; first step: {json.dumps(checks)}")
+    if not finite:
+        failed.append(f"{label}: a loss or grad norm is not finite")
+    if any(launches.values()):
+        failed.append(f"{label}: training launched a kernel: {launches}")
+    if check_first:
+        record_gate(f"phase 17 {label} first AdamW step",
+                    checks["first_step_move"])
+        if checks["bad_grads"] or not checks["first_step_move"] <= 1.0:
+            failed.append(f"{label}: first step {checks}")
+    out.update(step_s=step_s, peak_gb=peak_gb, held_gb=held_gb,
+               checks=checks)
+    return out
+
+
+def train_arch(dev, arch: str, seq: int, batch: int, counters: dict,
+               failed: list) -> dict:
+    """Phase 17 (b)/(c): ``arch`` trains TRAIN_STEPS steps at full width
+    and depth through ``launch.train.main`` (AdamW as its config says, lr
+    TRAIN_LR, no checkpoint), timed (``train_run``), then one more step
+    under ``torch.profiler`` for the device's idle share; tokens/s and the
+    model FLOPs utilisation, (6 x params x tokens + the attention
+    products) over 989 TFLOP/s."""
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, MarkovSource
+    from repro_torch.launch import train
+    from repro_torch.training.optimizer import make_optimizer
+    from repro_torch.training.step import make_train_step
+
+    argv = ["--arch", arch, "--steps", str(TRAIN_STEPS), "--seq-len",
+            str(seq), "--batch", str(batch), "--lr", str(TRAIN_LR),
+            "--ckpt-every", "0", "--log-every", "1", "--device", dev.type]
+    out = train_run(dev, arch, train.main, argv + (["--smoke"] if
+                                                   TRAIN_SMOKE else []),
+                    counters, failed, TRAIN_LR, 0.1)
+    model, cfg = out["model"], out["model"].cfg
+    steady = sum(out["step_s"][1:]) / max(1, len(out["step_s"]) - 1)
+    tokens = seq * batch
+    flops = 6 * cfg.param_count * tokens + _attention_flops(cfg, seq, batch)
+    step_fn = make_train_step(cfg, make_optimizer(cfg.optimizer,
+                                                  lr=TRAIN_LR))
+    nb = MarkovSource(cfg, DataConfig(seq_len=seq, batch_size=batch)
+                      ).batch_at(TRAIN_STEPS)
+    tb = {k: torch.from_numpy(v).to(dev) for k, v in nb.items()}
+    tr = traced(lambda: step_fn(model, out["opt"], tb, TRAIN_STEPS), top=8)
+    res = {"first_step_ms": out["step_s"][0] * 1e3,
+           "step_ms": steady * 1e3, "tokens_per_s": tokens / steady,
+           "peak_gb": out["peak_gb"], "held_gb": out["held_gb"],
+           "idle_share": tr["idle_share"],
+           "mfu": flops / steady / BF16_OPS_PER_S if BF16_OPS_PER_S else
+           None, "model_tflop_per_step": flops / 1e12,
+           "alloc_retries": torch.cuda.memory_stats().get(
+               "num_alloc_retries") if dev.type == "cuda" else None}
+    log(f"[17] {arch} training, {batch} x {seq} tokens a step: "
+        f"{json.dumps(res)}; traced step {json.dumps(tr)}")
+    del model, out, step_fn
+    torch.cuda.empty_cache()
+    return res
+
+
+def example_runs(dev, counters: dict, failed: list) -> dict:
+    """Phase 17 (d): the port's ``train_100m`` example under
+    ``deterministic()``: EXAMPLE_STEPS steps with a checkpoint every
+    EXAMPLE_EVERY (the loss must fall by EXAMPLE_FALL from the first
+    logged value to the last); a second run that fails at EXAMPLE_FAIL
+    by the injected hook, then resumes from its last checkpoint: its
+    parameters and optimizer state equal the first run's bit for bit.
+    Then EXAMPLE_TIMED steps with the deterministic algorithms off: what
+    they cost a step. (e) the first run's model, trainable, refuses the
+    kernels: ``lm.loss_fn(kernel="auto")`` under grad raises."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, MarkovSource
+    from repro_torch.examples import train_100m
+    from repro_torch.models import lm
+    from repro_torch.training.train_loop import deterministic
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    args = EXAMPLE_ARGS + ["--device", dev.type, "--ckpt-every",
+                           str(EXAMPLE_EVERY), "--log-every", "10"]
+    res = {}
+    try:
+        with deterministic():
+            a = train_run(dev, "train_100m", train_100m.main,
+                          args + ["--steps", str(EXAMPLE_STEPS),
+                                  "--ckpt-dir", str(root / "a")],
+                          counters, failed, EXAMPLE_LR, 0.1)
+            t0 = time.perf_counter()
+            try:
+                train_100m.main(args + ["--steps", str(EXAMPLE_STEPS),
+                                        "--ckpt-dir", str(root / "b"),
+                                        "--fail-at-step",
+                                        str(EXAMPLE_FAIL)])
+                failed.append("train_100m: the injected failure did not "
+                              "fire")
+            except RuntimeError as exc:
+                log(f"[17] train_100m crashed as injected: {exc}")
+            b = train_run(dev, "train_100m resumed", train_100m.main,
+                          args + ["--steps", str(EXAMPLE_STEPS),
+                                  "--ckpt-dir", str(root / "b")],
+                          counters, failed, EXAMPLE_LR, 0.1,
+                          check_first=False)
+            t_crash = time.perf_counter() - t0
+        hist = a["history"]
+        fall = hist[0]["loss"] - hist[-1]["loss"]
+        record_gate("phase 17 train_100m loss fall",
+                    EXAMPLE_FALL / fall if fall > 0 else math.inf)
+        if not fall >= EXAMPLE_FALL:
+            failed.append(f"train_100m: the loss fell by {fall}, not "
+                          f"{EXAMPLE_FALL}")
+        pa, pb = (dict(x["model"].named_parameters()) for x in (a, b))
+        differ = [k for k in pa if not torch.equal(pa[k], pb[k])]
+        differ += [f"{part}.{k}" for part in a["opt"] for k in a["opt"][part]
+                   if not torch.equal(a["opt"][part][k], b["opt"][part][k])]
+        record_gate("phase 17 train_100m resume", 0.0 if not differ
+                    else math.inf)
+        if differ or b["history"][0]["step"] != EXAMPLE_FAIL // \
+                EXAMPLE_EVERY * EXAMPLE_EVERY:
+            failed.append(f"train_100m: the resumed run started at "
+                          f"{b['history'][0]['step']}, differs in "
+                          f"{differ[:5]} ({len(differ)})")
+        t = train_run(dev, "train_100m, deterministic algorithms off",
+                      train_100m.main,
+                      EXAMPLE_ARGS + ["--device", dev.type, "--ckpt-every",
+                                      "0", "--steps", str(EXAMPLE_TIMED)],
+                      counters, failed, EXAMPLE_LR, 0.1)
+        det, free = (sum(x["step_s"][2:EXAMPLE_TIMED]) / (EXAMPLE_TIMED - 2)
+                     for x in (a, t))
+        res = {"step_ms_deterministic": det * 1e3, "step_ms": free * 1e3,
+               "loss_first": hist[0]["loss"], "loss_last": hist[-1]["loss"],
+               "resumed_bit_equal": not differ,
+               "crash_and_resume_s": t_crash, "peak_gb": a["peak_gb"]}
+        log(f"[17] train_100m: {json.dumps(res)} (steps 2-"
+            f"{EXAMPLE_TIMED - 1} of each run; deterministic algorithms "
+            f"cost {det / free - 1:+.3f} of a step)")
+        if dev.type == "cuda":  # (e): the CPU has no kernel to refuse
+            model = a["model"]
+            nb = MarkovSource(model.cfg, DataConfig(seq_len=16, batch_size=1)
+                              ).batch_at(0)
+            tb = {k: torch.from_numpy(v).to(dev) for k, v in nb.items()}
+            for fn in counters.values():
+                fn.launches = 0
+            try:
+                lm.loss_fn(model, tb, kernel="auto")
+                failed.append("a kernel launched on grad-requiring inputs")
+                refused = False
+            except RuntimeError as exc:
+                refused = "no backward" in str(exc)
+                log(f"[17] (e) loss_fn(kernel='auto') on the trainable "
+                    f"model raised: {exc}")
+            launched = sum(fn.launches for fn in counters.values())
+            record_gate("phase 17 (e) grad through a kernel refused",
+                        0.0 if refused and not launched else math.inf)
+            if not refused or launched:
+                failed.append(f"(e) not refused ({launched} launches)")
+            res["kernel_refused"] = refused
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
+def model_counters() -> dict:
+    """The model kernels' wrappers, whose ``launches`` count their
+    launches."""
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.rglru_scan import kernel as scan_kernel_mod
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel_mod
+    return {"flash_attention": fa_kernel.flash_attention_cuda,
+            "decode_attention": da_kernel.decode_attention_cuda,
+            "ssd_scan": ssd_kernel_mod.ssd_intra_chunk_cuda,
+            "rglru_scan": scan_kernel_mod.linear_scan_cuda}
+
+
+def training(dev, raise_on_fail: bool = True) -> dict:
+    """Phase 17: (a)-(c) each of TRAIN_RUNS, its evaluation loss
+    (``eval_loss``) and TRAIN_STEPS training steps (``train_arch``), each
+    model freed before the next; (d)-(e) the train_100m example
+    (``example_runs``). Runs every part before it raises. Returns the
+    evaluation losses' kernel launches and the measurements."""
+    from repro_torch.configs import get_config, get_smoke_config
+
+    t_phase = time.perf_counter()
+    counters = model_counters()
+    failed: list[str] = []
+    out = {"eval": {}, "train": {}}
+    for arch, seq, batch in TRAIN_RUNS:
+        cfg = (get_smoke_config if TRAIN_SMOKE else get_config)(arch)
+        try:
+            out["eval"][arch] = eval_loss(dev, arch, cfg, seq, batch,
+                                          counters, failed)
+            out["train"][arch] = train_arch(dev, arch, seq, batch, counters,
+                                            failed)
+        except (AssertionError, RuntimeError) as exc:
+            failed.append(f"{arch}: {exc}")
+            log(f"    gate failed: {exc}")
+    out["example"] = example_runs(dev, counters, failed)
+    secs = time.perf_counter() - t_phase
+    log(f"[17] phase 17: {secs}s (budget 150 s)")
+    if failed:
+        if raise_on_fail:
+            raise AssertionError("phase 17: " + "; ".join(failed))
+        for f in failed:
+            log(f"    gate failed: {f}")
+    return out
+
+
 def bit_gate(gate: str, equal: bool, msg: str, raise_on_fail: bool) -> None:
     """Record a bit gate as 0 (equal) or inf; a failure raises where
     ``raise_on_fail``, and is only printed otherwise (``--gates``)."""
@@ -2376,7 +2806,7 @@ def main(argv=None) -> int:
     ap.add_argument("--gates", nargs="*", type=int, metavar="PHASE",
                     help="run phase 1 and the gates of phases 2, 3, 5, 6, "
                          "7, 9, 11 and 15 (or of the phases named, 16 "
-                         "among them), recording "
+                         "and 17 among them), recording "
                          "every gate instead of stopping at the first that "
                          "fails; the last line is the gates' worst "
                          "multiples")
@@ -2387,6 +2817,10 @@ def main(argv=None) -> int:
                     help="the directory holding repro_torch (default: "
                          "src/ beside this script)")
     args = ap.parse_args(argv)
+    # before CUDA initialises: phase 17's resume check runs with
+    # deterministic algorithms, which ask cuBLAS for this workspace (the
+    # one PyTorch gives an sm_90 card anyway)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -2481,6 +2915,8 @@ def main(argv=None) -> int:
                 log(f"    gate failed: {exc}")
         if 16 in phases:
             zoo_models(dev, None, raise_on_fail=False)
+        if 17 in phases:
+            training(dev, raise_on_fail=False)
         print(json.dumps({"gates": GATES}), flush=True)
         return 0
 
@@ -2799,6 +3235,9 @@ def main(argv=None) -> int:
 
     # --------------------------------------------------------------- 16
     zoo = zoo_models(dev, counters)
+
+    # --------------------------------------------------------------- 17
+    trained = training(dev)
     check_imports()
 
     # ----------------------------------------------------------- output
@@ -2837,13 +3276,20 @@ def main(argv=None) -> int:
                                zoo["model_launches"].items()},
             "model_served_launches": {arch: n[name] for arch, n in
                                       zoo["served_launches"].items()},
+            "training_eval_launches": {
+                arch: e["launches"][name]
+                for arch, e in trained["eval"].items()},
             **a})
     for name, line in (("ssd_scan", 62), ("rglru_scan", 46)):
         record["kernels"].append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": f"src/repro/kernels/{name}/kernel.py:{line}",
-            "launches": launches[name], **recs[name]})
+            "launches": launches[name],
+            "training_eval_launches": {
+                arch: e["launches"][name]
+                for arch, e in trained["eval"].items()},
+            **recs[name]})
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -3,7 +3,10 @@
 A copy of the JAX package's ``configs/base.py`` (it imports no JAX). Every
 architecture registers a full-size config and a ``smoke()`` reduction of
 the same family (used by the CPU tests). The dry-run's input shapes and
-cells are not ported yet (ROADMAP queue 1 items 14e and 15).
+cells are not ported yet: ``InputShape``, ``SHAPES`` and ``cells`` come
+with the model-parallel layer and ``launch/specs.py`` (ROADMAP queue 1
+item 14e) and the dry-run (item 15); ``launch/train.py`` needs none of
+them.
 """
 from __future__ import annotations
 

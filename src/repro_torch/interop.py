@@ -8,7 +8,9 @@ the JAX tree under its own dotted path, whatever the family — untied
 heads, codebook tables and heads, ``patch_proj``, the MoE's router and
 expert stacks, the MLA projections, ``mtp``) and its decode caches
 (``lm_cache_from_numpy`` / ``lm_cache_to_numpy``: attention, MLA latent,
-recurrent and SSD caches alike). Everything
+recurrent and SSD caches alike) and an optimizer's state
+(``opt_state_from_numpy``: AdamW's moments and master, Adafactor's
+factored moments per JAX leaf); gradients cross as weights do. Everything
 arrives as numpy arrays (the tests pull them out of JAX with
 ``np.asarray``), so this module needs neither JAX nor ``repro``.
 
@@ -273,10 +275,14 @@ def _layer_index(cfg, group: str, i: int, r: int = 0) -> int:
 
 
 def _flat(tree, prefix: str = ""):
-    """(dotted path, leaf) pairs of a nested dict."""
+    """(dotted path, leaf) pairs of nested dicts and lists (an entry of a
+    list by its index)."""
     if isinstance(tree, dict):
         for key, sub in tree.items():
             yield from _flat(sub, f"{prefix}{key}.")
+    elif isinstance(tree, (list, tuple)):
+        for i, sub in enumerate(tree):
+            yield from _flat(sub, f"{prefix}{i}.")
     else:
         yield prefix[:-1], tree
 
@@ -311,6 +317,21 @@ def lm_params_from_numpy(params, cfg, device="cuda") -> dict:
             for path, leaf in _flat(sub, f"{key}."):
                 state[path] = to_tensor(leaf, device)
     return state
+
+
+def opt_state_from_numpy(state, cfg, device="cuda") -> dict:
+    """The JAX ``Optimizer.init``/``update`` state (numpy leaves) as the
+    port's ``repro_torch.training.optimizer`` state: AdamW's ``m``, ``v``
+    and ``master`` trees as the model's parameters
+    (``lm_params_from_numpy``), Adafactor's ``v_row``/``v_col`` per JAX
+    leaf under its dotted path, stacked as in JAX (the keys of
+    ``repro_torch.models.lm.leaf_groups``)."""
+    if "master" in state:
+        return {k: lm_params_from_numpy(state[k], cfg, device)
+                for k in ("m", "v", "master")}
+    return {k: {path: to_tensor(leaf, device)
+                for path, leaf in _flat(state[k])}
+            for k in ("v_row", "v_col")}
 
 
 def _nest(flat: dict) -> dict:

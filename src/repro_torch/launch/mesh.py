@@ -29,8 +29,9 @@ split into the slots' contiguous blocks, and the ``put_*`` constructors
 return, for each slot of THIS process, its block on its device.
 
 ``make_production_mesh`` / ``make_test_mesh`` belong to the LM
-substrate's training and expert parallelism, which are not ported yet
-(ROADMAP queue 1 items 14d and 14e).
+substrate's model-parallel layer (sharded training and expert
+parallelism), which is not ported yet (ROADMAP queue 1 item 14e); the
+port trains on one device (``repro_torch.launch.train``).
 """
 from __future__ import annotations
 

@@ -36,7 +36,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, lm, mla, rglru, ssd
-from repro_torch.models.layers import mlp, rmsnorm
+from repro_torch.models.layers import rmsnorm
 
 Cache = list[dict]
 
@@ -66,35 +66,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             for kind in cfg.layer_kinds]
 
 
-def _theta(cfg: ModelConfig, mixer: str) -> float:
-    if mixer == "local" and cfg.rope_local_theta:
-        return cfg.rope_local_theta
-    return cfg.rope_theta
-
-
-def _attn_kw(cfg: ModelConfig, mixer: str, kernel: str) -> dict:
-    return dict(kind=mixer, window=cfg.window, rope_theta=_theta(cfg, mixer),
-                attn_softcap=cfg.attn_softcap, qk_norm=cfg.qk_norm,
-                eps=cfg.norm_eps, kernel=kernel)
-
-
-def _mlp_residual(p: lm.Block, x: torch.Tensor, cfg: ModelConfig,
-                  capacity: int | None = None) -> torch.Tensor:
-    """The block's MLP (dense or MoE) and its residual; a kind without an
-    MLP (``ssd``) passes ``x`` through. ``capacity``: the MoE's slots per
-    expert (decode passes the batch size: no token is dropped)."""
-    if p.mlp_kind == "none":
-        return x
-    h = rmsnorm(p.mlp_norm, x, cfg.norm_eps)
-    if p.mlp_kind == "moe":
-        h, _ = lm._run_moe(p.mlp, h, cfg, capacity=capacity)
-    else:
-        h = mlp(p.mlp, h, cfg.mlp_act)
-    if cfg.post_norm:
-        h = rmsnorm(p.post_mlp_norm, h, cfg.norm_eps)
-    return x + h
-
-
 # ---------------------------------------------------------------------------
 # Decode
 # ---------------------------------------------------------------------------
@@ -114,37 +85,10 @@ def block_decode(p: lm.Block, cache: dict,
                                   eps=cfg.norm_eps)
     else:
         h, cache = attn.decode_attention(p.mixer, h, cache, pos,
-                                         **_attn_kw(cfg, p.kind, kernel))
+                                         **lm._attn_kw(cfg, p.kind, kernel))
     if cfg.post_norm:
         h = rmsnorm(p.post_mixer_norm, h, cfg.norm_eps)
-    return _mlp_residual(p, x + h, cfg, capacity=x.shape[0]), cache
-
-
-def _embed_step(model: lm.LM, tokens: torch.Tensor,
-                patches: torch.Tensor | None = None) -> torch.Tensor:
-    """Model inputs -> scaled embeddings (B, S, D) in the table's dtype:
-    token ids (B, S); audio grids (B, S, K), the K codebooks' embeddings
-    added in order from zero; a VLM's ``patches`` (B, P, E) projected and
-    placed before the text. The scale (gemma) applies to the whole
-    sequence, as in the JAX package."""
-    cfg = model.cfg
-    if cfg.family == "audio":
-        tables = model.embed.table                   # (K, V, D)
-        x = torch.zeros((*tokens.shape[:2], cfg.d_model),
-                        dtype=tables.dtype, device=tables.device)
-        for k in range(cfg.n_codebooks):
-            x = x + tables[k][tokens[..., k]]
-    else:
-        x = layers.embed(model.embed, tokens, False, cfg.d_model)
-    if cfg.patch_stub is not None and patches is not None:
-        x_patch = layers.linear(model.patch_proj, patches.to(x.dtype))
-        x = torch.cat([x_patch, x], dim=1)
-    elif patches is not None:
-        raise ValueError(f"{cfg.name} takes no patch embeddings")
-    if cfg.embed_scale:
-        # the reference scales by sqrt(d) rounded to the compute dtype
-        x = x * float(torch.tensor(cfg.d_model**0.5, dtype=x.dtype))
-    return x
+    return lm._mlp_residual(p, x + h, cfg, capacity=x.shape[0])[0], cache
 
 
 def _logits(model: lm.LM, x_last: torch.Tensor) -> torch.Tensor:
@@ -171,7 +115,7 @@ def decode_step(model: lm.LM, cache: Cache, tokens: torch.Tensor, pos: int,
     Returns (logits (B, V) float32 — audio (B, K, V) —, the cache,
     updated in place)."""
     cfg = model.cfg
-    x = _embed_step(model, tokens)
+    x = lm.embed(model, tokens)
     for p, c in zip(model.blocks, cache):
         x, _ = block_decode(p, c, x, cfg, pos, kernel)
     return _logits(model, x[:, 0]), cache
@@ -218,11 +162,11 @@ def block_prefill(p: lm.Block, x: torch.Tensor, cfg: ModelConfig,
         cache = mla.mla_cache_from_latents(c_kv, k_rope, max_len)
     else:
         h, (k, v) = attn.attention(p.mixer, h, positions, return_kv=True,
-                                   **_attn_kw(cfg, p.kind, kernel))
+                                   **lm._attn_kw(cfg, p.kind, kernel))
         cache = _attn_cache_from_kv(k, v, p.kind, cfg.window, max_len)
     if cfg.post_norm:
         h = rmsnorm(p.post_mixer_norm, h, cfg.norm_eps)
-    return _mlp_residual(p, x + h, cfg), cache
+    return lm._mlp_residual(p, x + h, cfg)[0], cache
 
 
 @torch.no_grad()
@@ -236,7 +180,7 @@ def prefill(model: lm.LM, tokens: torch.Tensor, max_len: int, *,
     if cfg.patch_stub is not None and patches is None:
         raise ValueError(f"{cfg.name} takes patch embeddings (patches=) "
                          f"before the text")
-    x = _embed_step(model, tokens, patches)
+    x = lm.embed(model, tokens, patches)
     b, s = x.shape[:2]
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)

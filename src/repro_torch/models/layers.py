@@ -22,6 +22,7 @@ import math
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 DEFAULT_PARAM_DTYPE = torch.bfloat16
 
@@ -245,3 +246,57 @@ def logits_from_hidden(table: torch.Tensor, h: torch.Tensor,
             out[..., i:i + rows] = torch.matmul(
                 h32, table[i:i + rows].to(torch.float32).t())
     return softcap(out, final_cap)
+
+
+def _ce_chunk(table: torch.Tensor, hc: torch.Tensor, tc: torch.Tensor,
+              mc: torch.Tensor, final_cap: float | None,
+              n_valid: int | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """One chunk of ``chunked_cross_entropy``: the masked sum of the
+    chunk's negative log-likelihoods and the sum of its mask."""
+    logits = logits_from_hidden(table, hc, final_cap)  # (b, chunk, V) f32
+    v = logits.shape[-1]
+    if n_valid is not None and n_valid < v:
+        # in place: logits_from_hidden's output is saved by no op
+        logits.masked_fill_(torch.arange(v, device=logits.device)
+                            >= n_valid, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, tc[..., None].long())[..., 0]
+    return torch.sum((lse - tgt) * mc), torch.sum(mc)
+
+
+def chunked_cross_entropy(table: torch.Tensor, h: torch.Tensor,
+                          targets: torch.Tensor,
+                          mask: torch.Tensor | None = None,
+                          chunk: int = 512, final_cap: float | None = None,
+                          n_valid: int | None = None) -> torch.Tensor:
+    """Next-token CE without materializing the full (B, S, V) logits.
+
+    Walks the sequence in chunks: each computes (B, chunk, V) float32
+    logits, their logsumexp and the target's logit. With grad enabled a
+    chunk is recomputed in backward (``torch.utils.checkpoint``), so only
+    one chunk's logits are alive at a time: at 256,000 words and 4,608
+    positions the whole float32 logits would take 4.7 GB.
+
+    ``n_valid``: real vocabulary size when the table is padded (padded
+    columns are set to -1e30 before the logsumexp)."""
+    b, s, _ = h.shape
+    if s % chunk:
+        raise ValueError(f"seq {s} not divisible by loss chunk {chunk}")
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=h.device)
+    mask = mask.to(torch.float32)
+    remat = torch.is_grad_enabled() and (h.requires_grad
+                                         or table.requires_grad)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    count = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, s, chunk):
+        args = (table, h[:, i:i + chunk], targets[:, i:i + chunk],
+                mask[:, i:i + chunk], final_cap, n_valid)
+        if remat:
+            nll, cnt = checkpoint(_ce_chunk, *args, use_reentrant=False,
+                                  preserve_rng_state=False)
+        else:
+            nll, cnt = _ce_chunk(*args)
+        total = total + nll
+        count = count + cnt
+    return total / torch.clamp(count, min=1.0)

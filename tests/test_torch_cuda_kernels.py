@@ -663,3 +663,141 @@ def test_recurrent_smoke_models_kernels_match_plain(cuda_device, arch):
         out[name] = torch.stack(steps)
     floor = float((out["off32"] - out["off"]).abs().max())
     assert float((out["on"] - out["off"]).abs().max()) <= 2 * floor
+
+
+def _smoke_trainable(device, arch="gemma2-2b"):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+    cfg = get_smoke_config(arch)
+    return lm.init(torch.Generator(device).manual_seed(0),
+                   cfg).requires_grad_(True)
+
+
+def _markov_batch(cfg, device, seq=32, batch=2):
+    from repro_torch.data.pipeline import DataConfig, MarkovSource
+    nb = MarkovSource(cfg, DataConfig(seq_len=seq, batch_size=batch)
+                      ).batch_at(0)
+    return {k: torch.from_numpy(v).to(device) for k, v in nb.items()}
+
+
+def _loss_grads(model, batch):
+    from repro_torch.models import lm
+    for p in model.parameters():
+        p.grad = None
+    total, _ = lm.loss_fn(model, batch)
+    total.backward()
+    return float(total.detach()), {
+        n: p.grad.float().cpu() for n, p in model.named_parameters()}
+
+
+def _worst_rel(got, want):
+    return max(float((got[k] - w).abs().max()) / float(w.abs().max())
+               for k, w in want.items() if float(w.abs().max()) > 0)
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-370m"])
+def test_train_step_on_the_card(cuda_device, arch):
+    """One training step of a smoke model on the card: the loss within
+    1e-3 relative of the same weights' loss on the CPU (the loss
+    tolerance of tests/test_torch_train_lm.py), the grads within twice
+    the card's own bf16 floor (its float32 copy's distance) of the CPU's,
+    no kernel launched, and ``make_train_step`` updates every parameter
+    with a finite grad norm (every float32 master moves)."""
+    import copy
+
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.models import lm
+    from repro_torch.training.optimizer import make_optimizer
+    from repro_torch.training.step import make_train_step
+    model = _smoke_trainable(cuda_device, arch)
+    batch = _markov_batch(model.cfg, cuda_device)
+    cpu = copy.deepcopy(model).cpu()
+    before = (fa_kernel.flash_attention_cuda.launches,
+              ssd_kernel.ssd_intra_chunk_cuda.launches)
+    loss, grads = _loss_grads(model, batch)
+    loss32, grads32 = _loss_grads(copy.deepcopy(model).float(), batch)
+    want_loss, want = _loss_grads(cpu, {k: v.cpu() for k, v in
+                                        batch.items()})
+    assert abs(loss - want_loss) <= 1e-3 * abs(want_loss)
+    assert _worst_rel(grads, want) <= 2 * _worst_rel(grads32, grads)
+    opt = make_optimizer("adamw", lr=1e-3)
+    state = opt.init(dict(model.named_parameters()), lm.leaf_groups(model))
+    old = {n: p.detach().clone() for n, p in model.named_parameters()}
+    _, state, metrics = make_train_step(model.cfg, opt)(model, state, batch,
+                                                        0)
+    assert torch.isfinite(metrics["grad_norm"]) and \
+        torch.isfinite(metrics["loss"])
+    assert all(not torch.equal(state["master"][n], old[n].float())
+               for n in old)
+    assert (fa_kernel.flash_attention_cuda.launches,
+            ssd_kernel.ssd_intra_chunk_cuda.launches) == before
+
+
+def test_kernels_refuse_grad_requiring_inputs(cuda_device):
+    """The CUDA kernels have no backward: a launch on an input that
+    requires grad raises and launches nothing, as does ``loss_fn`` with
+    ``kernel="auto"`` on a trainable model; under ``no_grad`` both
+    launch."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import lm
+    g = torch.Generator(cuda_device).manual_seed(0)
+    q, k, v = (torch.randn((1, 64, h, 256), generator=g, device=cuda_device,
+                           dtype=torch.bfloat16) for h in (8, 4, 4))
+    q.requires_grad_(True)
+    n = fa_kernel.flash_attention_cuda.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa_ops.flash_attention(q, k, v, kernel="on")
+    assert fa_kernel.flash_attention_cuda.launches == n
+    with torch.no_grad():
+        fa_ops.flash_attention(q, k, v, kernel="on")
+    assert fa_kernel.flash_attention_cuda.launches == n + 1
+    model = _smoke_trainable(cuda_device)
+    batch = _markov_batch(model.cfg, cuda_device)
+    with pytest.raises(RuntimeError, match="no backward"):
+        lm.loss_fn(model, batch, kernel="auto")
+    assert fa_kernel.flash_attention_cuda.launches == n + 1
+    with torch.no_grad():
+        lm.loss_fn(model, batch, kernel="auto")
+    assert fa_kernel.flash_attention_cuda.launches == n + 1 + sum(
+        kind in ("global", "local") for kind in model.cfg.layer_kinds)
+
+
+def test_crash_resume_bitwise_on_the_card(cuda_device, tmp_path,
+                                          monkeypatch):
+    """The trainer's restart contract on the card, at the JAX test's tiny
+    config, under deterministic algorithms: a run that fails at step 5
+    and resumes from its step-3 checkpoint ends with the parameters and
+    optimizer state of an uninterrupted run, bit for bit."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.training.train_loop import (Trainer, TrainerConfig,
+                                                 deterministic)
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg = ModelConfig(name="tiny", family="dense", n_layers=2, d_model=32,
+                      n_heads=2, n_kv_heads=2, head_dim=16, d_ff=64,
+                      vocab_size=64, pattern=("global",),
+                      tie_embeddings=True, recipe="tp",
+                      long_context_ok=False)
+
+    def make(d, fail_at=None):
+        return Trainer(cfg, DataConfig(seq_len=16, batch_size=4, seed=1),
+                       TrainerConfig(ckpt_dir=str(tmp_path / d),
+                                     ckpt_every=3, log_every=100,
+                                     fail_at_step=fail_at),
+                       log_fn=lambda *_: None, device=cuda_device)
+
+    with deterministic():
+        straight = make("a").run(8)
+        with pytest.raises(RuntimeError, match="injected failure"):
+            make("b", 5).run(8)
+        resumed = make("b").run(8)
+    a = dict(straight["model"].named_parameters())
+    b = dict(resumed["model"].named_parameters())
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    for part in ("m", "v", "master"):
+        for k in a:
+            assert torch.equal(straight["opt"][part][k],
+                               resumed["opt"][part][k]), (part, k)

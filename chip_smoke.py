@@ -5,6 +5,7 @@
     python3 chip_smoke.py --gates      # phases 1-3, 5-7, 9, 11, 15, gates recorded
     python3 chip_smoke.py --gates 16   # phase 16 alone (the seven models)
     python3 chip_smoke.py --gates 17   # phase 17 alone (training)
+    python3 chip_smoke.py --gates 18   # phase 18 alone (model parallel)
     python3 chip_smoke.py --faults     # --gates on planted faults F9-F18
     python3 chip_smoke.py --faults F12 F13 F14   # only those (+ control)
 
@@ -146,8 +147,8 @@ nonzero:
      on phase 4's runs: (a) the fig2 sweep through
      ``sweep_dists_sharded`` on 4 shards of the card and the 1M-arrival
      run on 5 (12 cells padded to 15); (b) ``threshold_grid_batch`` under
-     ``use_sweep_mesh``; (c) two processes spawned with
-     ``torch.multiprocessing``, each adding two slots on cuda:0 through
+     ``use_sweep_mesh``; (c) two processes spawned by
+     ``multihost.spawn``, each adding two slots on cuda:0 through
      ``multihost.initialize`` (gloo, a file store in a temporary
      directory), running the fig2 sweep as a plain ``queueing.run`` —
      each prints the rows it sampled against the whole block; (d)
@@ -196,7 +197,32 @@ nonzero:
      run's bit for bit; 12 steps with the deterministic algorithms off,
      for what they cost a step; (e) the example's trainable model refuses
      the kernels: ``loss_fn(kernel="auto")`` under grad raises, nothing
-     launched.
+     launched;
+ 18. the model-parallel layer (``repro_torch.distributed``): four ranks
+     spawned on cuda:0, joined over gloo through a file store, form a
+     (data 2, model 2) mesh (``make_test_mesh``) and print which
+     collectives gloo takes on CUDA tensors (the others are staged
+     through pinned host buffers). (a) granite-moe-3b-a800m at full width
+     and a depth of ``MP_DEPTH`` under its fsdp recipe (the batch over
+     (data, model), experts over model, tokens gathered over model),
+     AdamW, ``MP_STEPS`` steps of 8 x 1024 tokens through
+     ``make_train_step(ctx=)`` on a ``ShardedModel`` drawn shard by shard
+     from seed 0, the capacity raised so no token drops, replaying the
+     expert choices of the same steps run unsharded first in this process
+     on the same function (each EP group's rows, capacity and aux loss):
+     each step's loss and grad norm within ``MP_LOSS_RTOL`` /
+     ``MP_NORM_RTOL`` of the unsharded run's, every parameter after the
+     last step within twice its distance in the unsharded run's float32
+     copy, all finite;
+     step times, peak memory per rank, collective bytes a step, the
+     routing agreement without replay; (b) the sharded evaluation loss
+     under ``torch.no_grad()`` with the kernels (``flash_attention``
+     once a layer on each rank), their plain versions and the attention
+     ops in float32, gated as 17(a); (c) the final state gathered, written
+     by rank 0 and restored through ``elastic.reshard_state`` onto the
+     (1, 2) mesh of ``plan_for(2, model_degree=2)`` and onto one device,
+     bit-equal; (d) ``hierarchical_grad_reduce`` on (pod 2, data 2) and a
+     2-stage ``pipeline_apply`` on the card at the JAX tests' tolerances.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. A kernel's ``launches`` there are those
@@ -206,14 +232,16 @@ of its main path's run (phase 4, 8, 10 or 12; the attention kernels'
 ``figure_launches`` those of phase 13's modules, ``serving_launches``
 (``cell_update`` and the attention kernels) phase 14's, and
 ``cell_update``'s ``sharded_launches`` phase 15's (the spawned
-processes' included), and ``training_eval_launches`` (the attention
-kernels, ``ssd_scan`` and ``rglru_scan``) phase 17's evaluation losses;
+processes' included), ``training_eval_launches`` (the attention
+kernels, ``ssd_scan`` and ``rglru_scan``) phase 17's evaluation losses
+and ``flash_attention``'s ``sharded_eval_launches`` phase 18's (its four
+ranks');
 ``hist_accum``,
 which no main path launches, reads 0 and gives its launches in phase 2 as
 ``check_launches``. Needs CUDA and the repository's
 ``src/`` beside this script (or ``--src``); imports nothing of JAX or of
 ``repro``. ``--gates`` records every gate of phases 2, 3, 5-7, 9, 11 and
-15, and of 16 and 17 where they are named (the worst multiple of its
+15, and of 16, 17 and 18 where they are named (the worst multiple of its
 allowance; a bit gate as 0 or inf; phase 15 runs its own unsharded
 references; phase 16 skips its serving) instead of
 stopping at the first that fails, and prints them as its last line;
@@ -2490,11 +2518,10 @@ def sharded_sweep(dev, src, ref: dict | None = None,
     import tempfile
 
     import torch
-    import torch.multiprocessing as torch_mp
 
     from repro_torch.bench import sweep_engine
     from repro_torch.core import queueing, threshold
-    from repro_torch.distributed import sweep_shard
+    from repro_torch.distributed import multihost, sweep_shard
     from repro_torch.kernels.cell_update import kernel as cell_kernel
     from repro_torch.launch.mesh import make_sweep_mesh, use_sweep_mesh
 
@@ -2559,28 +2586,16 @@ def sharded_sweep(dev, src, ref: dict | None = None,
              raise_on_fail)
 
     # (c) two processes x two slots on cuda:0, over gloo
-    ctx = torch_mp.get_context("spawn")
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        procs = [ctx.Process(target=sharded_rank,
-                             args=(r, str(src), f"{tmp}/store", tmp))
-                 for r in range(2)]
-        for p in procs:
-            p.start()
         try:
-            for p in procs:
-                p.join(timeout=max(SPAWN_LIMIT_S - (time.perf_counter()
-                                                    - t0), 1.0))
-        finally:
-            for p in procs:
-                if p.is_alive():
-                    p.kill()
-                    p.join(timeout=30.0)
+            multihost.spawn(sharded_rank, 2, (str(src), f"{tmp}/store", tmp),
+                            SPAWN_LIMIT_S)
+            ok, why = True, ""
+        except RuntimeError as exc:
+            ok, why = False, str(exc)
         walls["(c) spawn to exit"] = time.perf_counter() - t0
-        codes = [p.exitcode for p in procs]
-        ok = codes == [0, 0]
-        bit_gate("phase 15 (c) processes", ok,
-                 f"phase 15 (c): the processes exited with {codes}",
+        bit_gate("phase 15 (c) processes", ok, f"phase 15 (c): {why}",
                  raise_on_fail)
         if ok:
             ranks = [torch.load(Path(tmp) / f"rank{r}.pt") for r in (0, 1)]
@@ -2613,6 +2628,532 @@ def sharded_sweep(dev, src, ref: dict | None = None,
         f"pipeline off); sharded == unsharded bit for bit in (a)-(d)")
     log(f"[15] phase 15: {time.perf_counter() - t_phase}s")
     return sum(launches.values())
+
+
+# Phase 18: the model-parallel layer (``repro_torch.distributed``). Four
+# ranks spawned on the card form a (data 2, model 2) mesh over gloo and
+# train granite-moe-3b-a800m at full width under its fsdp recipe (the
+# batch over (data, model), experts over model: the tokens gathered over
+# model), cut to MP_DEPTH of its 32 layers: the gathers and gradient
+# reductions go through gloo on the host, about 8x more at full depth
+# (PERF.md §4). The same steps run unsharded in this process first.
+MP_ARCH = "granite-moe-3b-a800m"
+MP_DEPTH = 4
+MP_SEQ, MP_BATCH = 1024, 8       # the global batch; 2 rows a rank
+MP_MESH = (2, 2)                 # (data, model)
+MP_STEPS = 3
+MP_LR = 1e-3
+MP_SMOKE = False                 # the smoke config (the CPU rehearsal)
+MP_LIMIT_S = 400.0
+# the pipeline and hierarchical-reduce checks of (d): (stages, microbatches,
+# rows, width) and the reduced gradient's shape
+MP_PIPE = (2, 8, 16, 256)
+MP_HIER_SHAPE = (1024, 1536)
+# gates of (a), against the unsharded run on the same function (each EP
+# group's rows, capacity and aux loss, as the sharded loss takes them):
+# relative loss and grad-norm differences a step, about three times what
+# a chip run read (1.65e-4 and 2.67e-4 on an NVIDIA H100 80GB HBM3 at
+# 700.00 W), the grad norm's below the 1.08e-3 it read while the expert
+# outputs were combined across ranks in bf16 (the loss then read
+# 9.96e-5), and, for each parameter after the
+# last step, the norm of
+# (sharded - unsharded) over the unsharded one's norm within MP_PARAM_MULT
+# times the same measure between the unsharded run and its float32 copy
+# (the model's own bf16 floor, the rule of phases 7 and 16). A fixed
+# share will not do: AdamW moves an element by about lr a step whatever
+# its gradient, so where a gradient is near zero a bf16-level difference
+# flips its sign (that first run read 0.64 of the largest value of the
+# zero-initialised blocks.0.pre_norm.scale); the norm, not the largest
+# element, so that one flipped element does not decide a leaf.
+MP_LOSS_RTOL = 5e-4
+MP_NORM_RTOL = 8e-4
+MP_PARAM_MULT = 2.0
+# the settings a spawned rank takes from the parent (a rehearsal sets some)
+MP_SETTINGS = ("MP_DEPTH", "MP_SEQ", "MP_BATCH", "MP_STEPS", "MP_LR",
+               "MP_SMOKE", "MP_PIPE", "MP_HIER_SHAPE")
+
+
+def mp_config():
+    """Phase 18's config: granite-moe-3b-a800m at full width (or its smoke
+    config), MP_DEPTH layers, the capacity raised so that no token drops
+    (capacity = the tokens an expert sees)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_smoke_config
+
+    cfg = (get_smoke_config if MP_SMOKE else get_config)(MP_ARCH)
+    m = cfg.moe
+    return dataclasses.replace(
+        cfg, n_layers=MP_DEPTH, moe=dataclasses.replace(
+            m, capacity_factor=m.n_experts / m.top_k))
+
+
+def _route_key(xt) -> tuple:
+    import hashlib
+
+    import torch
+
+    raw = xt.detach().contiguous().view(torch.int16).cpu().numpy()
+    return tuple(xt.shape), hashlib.sha1(raw.tobytes()).hexdigest()
+
+
+@contextlib.contextmanager
+def moe_routes_by_input(record: list, queue: list | None = None,
+                        agree: list | None = None):
+    """``moe.route`` recording (``queue`` None: each new input's choice
+    appended to ``record``, on the host) or replaying (each new input
+    takes the next choice of ``queue``; ``agree`` collects (matching,
+    total) of the run's own choices). An input seen before — the
+    recompute of a rematerialised layer in backward — takes the choice
+    it took."""
+    import torch
+
+    from repro_torch.models import moe
+
+    orig, taken = moe.route, {}
+    queue = list(queue) if queue is not None else None
+
+    def route(router_w, xt, cfg):
+        key = _route_key(xt)
+        if key not in taken:
+            with torch.no_grad():
+                own = orig(router_w, xt, cfg)[0]
+            if queue is None:
+                taken[key] = own
+                record.append(own.cpu())
+            else:
+                taken[key] = queue.pop(0).to(xt.device)
+                agree.append((int((own == taken[key]).sum()), own.numel()))
+        idx = taken[key]
+        logits = moe.router_logits(router_w, xt, cfg)
+        return (idx, *moe.combine(logits, idx, cfg))
+
+    moe.route = route
+    try:
+        yield
+    finally:
+        moe.route = orig
+
+
+def _mp_batch(cfg, step: int) -> dict:
+    """Step ``step``'s global Markov batch (seed 0), on the host."""
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, MarkovSource
+
+    src = MarkovSource(cfg, DataConfig(seq_len=MP_SEQ, batch_size=MP_BATCH))
+    return {k: torch.from_numpy(v) for k, v in src.batch_at(step).items()}
+
+
+def mp_reference(dev, cfg, routes: list | None = None,
+                 widen: bool = False) -> dict:
+    """Phase 18's unsharded run: the model of seed 0, MP_STEPS AdamW steps
+    on the function the sharded run computes — the mean over the EP
+    groups (the mesh's data rows: MP_BATCH / MP_MESH[0] rows each) of
+    ``lm.loss_fn`` on the group's rows — recording the expert choices per
+    step and group (``routes`` None) or replaying ``routes``. ``widen``:
+    the model in float32 (``.float()``), the yardstick of the parameter
+    gate. Returns the final parameters (the model freed), the history,
+    the choices, the plain full-batch loss at step 0 and the peak."""
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.training.optimizer import make_optimizer
+
+    model = lm.init(torch.Generator(dev).manual_seed(0), cfg)
+    if widen:
+        model = model.float()
+    model.requires_grad_(True)
+    params = dict(model.named_parameters())
+    groups = lm.leaf_groups(model)
+    opt = make_optimizer(cfg.optimizer, lr=MP_LR)
+    state = opt.init(params, groups)
+    rows = MP_BATCH // MP_MESH[0]
+    with torch.no_grad():
+        _, full = lm.loss_fn(model, {k: v.to(dev) for k, v in
+                                     _mp_batch(cfg, 0).items()})
+    hist, recorded = [], []
+    for step in range(MP_STEPS):
+        batch = {k: v.to(dev) for k, v in _mp_batch(cfg, step).items()}
+        _sync(dev)
+        t0 = time.perf_counter()
+        for p in params.values():
+            p.grad = None
+        total, losses = 0.0, []
+        record: list = []
+        queue = None if routes is None else [r for g in routes[step]
+                                             for r in g]
+        with moe_routes_by_input(record, queue, []):
+            for g in range(MP_MESH[0]):
+                t, m = lm.loss_fn(model, {k: v[g * rows:(g + 1) * rows]
+                                          for k, v in batch.items()})
+                total = total + t / MP_MESH[0]
+                losses.append(m["loss"])
+            total.backward()
+        n = len(record) // MP_MESH[0]
+        recorded.append([record[g * n:(g + 1) * n]
+                         for g in range(MP_MESH[0])])
+        _, state, norm = opt.update(params, {k: p.grad for k, p in
+                                             params.items()}, state, step,
+                                    groups)
+        _sync(dev)
+        hist.append({"loss": float(sum(losses) / len(losses)),
+                     "grad_norm": float(norm),
+                     "ms": (time.perf_counter() - t0) * 1e3})
+    out = {"params": {n: p.detach().clone() for n, p in params.items()},
+           "history": hist, "routes": recorded,
+           "full_batch_loss": float(full["loss"]),
+           "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                       if dev.type == "cuda" else None)}
+    del model, params, state
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _mp_eval(dev, cfg, sm, ctx, batch, counters: dict) -> dict:
+    """Phase 18 (b): the sharded evaluation loss under ``torch.no_grad()``
+    with the kernels, their plain versions and the attention ops in
+    float32; the kernels' launches read around the first."""
+    import torch
+
+    out, launches = {}, {}
+    with torch.no_grad():
+        for mode in ("auto", "off", "off32"):
+            ctx32 = (float32_attention() if mode == "off32"
+                     else contextlib.nullcontext())
+            for fn in counters.values():
+                fn.launches = 0
+            _sync(dev)
+            t0 = time.perf_counter()
+            with ctx32:
+                _, m = sm.loss(batch, "auto" if mode == "auto" else "off")
+            _sync(dev)
+            out[mode] = {"loss": float(m["loss"]),
+                         "ms": (time.perf_counter() - t0) * 1e3}
+            if mode == "auto":
+                launches = {k: fn.launches for k, fn in counters.items()}
+    return {"loss": out, "launches": launches}
+
+
+def _mp_collectives(dev) -> dict:
+    """Phase 18 (d): ``hierarchical_grad_reduce`` on a (pod 2, data 2)
+    mesh against the flat mean (rtol 1e-6, the JAX test's), and
+    ``pipeline_apply`` with 2 stages over ``pod`` against the stages
+    applied in turn (1e-5, the JAX test's), on ``dev``."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.distributed import collectives, pipeline
+
+    mesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 2),
+                      mesh_dim_names=("pod", "data"))
+    c = collectives.mesh_coords(mesh)
+    gen = torch.Generator(dev).manual_seed(18)
+    base = torch.randn(MP_HIER_SHAPE, generator=gen, device=dev)
+    grads = {"w": base * (c["pod"] * 2 + c["data"] + 1),
+             "b": torch.full((7,), float(c["pod"] * 10 + c["data"]),
+                             device=dev)}
+    got = collectives.hierarchical_grad_reduce(grads, mesh)
+    want = {"w": base * 2.5, "b": torch.full((7,), 5.5, device=dev)}
+    hier = max(float(((got[k] - want[k]).abs() / want[k].abs()).max())
+               for k in want)
+    stages, micro, rows, width = MP_PIPE
+    w = torch.randn(stages, width, width, generator=gen, device=dev) \
+        * width**-0.5
+    x = torch.randn(micro, rows, width, generator=gen, device=dev)
+    out = pipeline.pipeline_apply(lambda p, h: torch.tanh(h @ p["w"]),
+                                  {"w": w}, x, mesh)
+    ref = x
+    for s in range(stages):
+        ref = torch.tanh(ref @ w[s])
+    return {"hier_rel_err": hier,
+            "pipeline_err": float((out - ref).abs().max())}
+
+
+def model_parallel_rank(rank: int, src: str, store: str, tmp: str,
+                        device: str, settings: dict) -> None:
+    """One rank of phase 18, spawned: (a) MP_STEPS sharded steps replaying
+    the unsharded run's expert choices for its EP group; (b) the sharded
+    evaluation loss; (d) the collectives; (c) the final state gathered and
+    written by rank 0, restored through ``reshard_state`` onto the (1, 2)
+    mesh that ``elastic.plan_for(2, model_degree=2)`` gives (ranks 0-1,
+    made last) and onto one device (rank 0). Saves what it measured.
+    ``settings``: the parent's values of ``MP_SETTINGS``."""
+    globals().update(settings)
+    sys.path.insert(0, src)
+    import dataclasses
+
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.distributed import collectives, elastic, multihost
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.training.optimizer import make_optimizer
+    from repro_torch.training.step import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cpu":  # four ranks share the host's cores
+        torch.set_num_threads(1)
+    multihost.initialize(f"file://{store}", 4, rank, device=device,
+                         set_default_mesh=False, timeout_s=300.0)
+    try:
+        out: dict = {}
+        if dev.type == "cuda":
+            out["gloo_cuda"] = collectives.gloo_takes_cuda()
+        cfg = mp_config()
+        mesh = make_test_mesh(*MP_MESH)
+        ctx = sharding.make_ctx(cfg, mesh, sharding.make_layout(
+            cfg, "train", False, MP_BATCH))
+        d = collectives.mesh_coords(mesh)["data"]
+        routes = torch.load(Path(tmp) / "routes.pt")
+        queue = [r for step in routes for r in step[d]]
+        _sync(dev)
+        t0 = time.perf_counter()
+        sm = sharding.ShardedModel.init(cfg, ctx, 0, dev)
+        opt = make_optimizer(cfg.optimizer, lr=MP_LR)
+        state = opt.init(sm.shards, sm.groups, sharded=sm)
+        _sync(dev)
+        out["init_s"] = time.perf_counter() - t0
+        step_fn = make_train_step(cfg, opt, ctx=ctx)
+        hist, agree = [], []
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        with moe_routes_by_input([], queue, agree):
+            for step in range(MP_STEPS):
+                batch = {k: v.to(dev) for k, v in sharding.batch_rows(
+                    _mp_batch(cfg, step), ctx).items()}
+                before = sum(collectives.BYTES.values())
+                _sync(dev)
+                t0 = time.perf_counter()
+                sm, state, m = step_fn(sm, state, batch, step)
+                _sync(dev)
+                hist.append({"loss": float(m["loss"]),
+                             "grad_norm": float(m["grad_norm"]),
+                             "ms": (time.perf_counter() - t0) * 1e3,
+                             "bytes": sum(collectives.BYTES.values())
+                             - before})
+        out.update(history=hist, agree=agreement(agree),
+                   bytes_by_op=dict(collectives.BYTES),
+                   peak_gb=(torch.cuda.max_memory_allocated() / 1e9
+                            if dev.type == "cuda" else None))
+        ebatch = {k: v.to(dev) for k, v in sharding.batch_rows(
+            _mp_batch(cfg, MP_STEPS), ctx).items()}
+        out["eval"] = _mp_eval(dev, cfg, sm, ctx, ebatch, model_counters())
+        out["collectives"] = _mp_collectives(dev)
+        # (c) the state gathered (the checkpoint's one-device layout)
+        full = sm.full_params()
+        ckdir = Path(tmp) / "ckpt"
+        if rank == 0:
+            ckpt.save(ckdir, MP_STEPS, full)
+        collectives.all_reduce(torch.zeros(1), mesh, ("data", "model"))
+        plan = elastic.plan_for(2, model_degree=2)
+        sub = DeviceMesh("cpu", torch.arange(2).reshape(plan.mesh_shape),
+                         mesh_dim_names=plan.axis_names)
+        like = {n: torch.empty(0, dtype=t.dtype, device=dev)
+                for n, t in full.items()}
+        if rank < 2:
+            blocks = elastic.reshard_state(cfg, str(ckdir), MP_STEPS, like,
+                                           sub)
+            specs = sharding.port_param_specs(sm.meta, cfg)
+            out["reshard_equal"] = all(torch.equal(
+                sharding.gather_full(blocks[n], specs[n], sub), full[n])
+                for n in full)
+            out["reshard_blocks"] = sum(blocks[n].numel() < full[n].numel()
+                                        for n in full)
+        if rank == 0:
+            whole = elastic.reshard_state(cfg, str(ckdir), MP_STEPS, like,
+                                          None)
+            out["one_device_equal"] = all(torch.equal(whole[n], full[n])
+                                          for n in full)
+            out["plan"] = dataclasses.asdict(plan)
+        torch.save(out, Path(tmp) / f"rank{rank}.pt")
+    finally:
+        multihost.shutdown()
+
+
+def model_parallel(dev, src, raise_on_fail: bool = True) -> dict:
+    """Phase 18: the unsharded reference (``mp_reference``), then four
+    ranks on ``dev`` (``model_parallel_rank``, spawned, joined within
+    MP_LIMIT_S) and the gates: (a) each step's loss and grad norm
+    within MP_LOSS_RTOL / MP_NORM_RTOL of the unsharded run's, every
+    parameter after the last step within MP_PARAM_MULT times its float32
+    floor of the unsharded one, all finite; (b) the sharded evaluation loss with the kernels
+    within twice the plain path's float32 distance (at least
+    EVAL_LOSS_RTOL of it), ``flash_attention`` launched once a layer on
+    each rank; (c) the resharded states bit-equal to the gathered one;
+    (d) the collectives at the JAX tests' tolerances. Returns the
+    evaluation's kernel launches (summed over the ranks) and the
+    measurements."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.distributed import multihost
+
+    t_phase = time.perf_counter()
+    cfg = mp_config()
+    failed: list[str] = []
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    ref = mp_reference(dev, cfg)
+    t_ref = time.perf_counter() - t_phase
+    ref32 = mp_reference(dev, cfg, ref["routes"], widen=True)
+    log(f"[18] {cfg.name} at depth {MP_DEPTH} "
+        f"({sum(p.numel() for p in ref['params'].values())} parameters), "
+        f"{MP_BATCH} x {MP_SEQ} tokens a step, unsharded: "
+        f"{json.dumps(ref['history'])}; plain full-batch loss at step 0 "
+        f"{ref['full_batch_loss']} (the global aux loss); peak "
+        f"{ref['peak_gb']} GB; {t_ref}s; in float32 "
+        f"{json.dumps(ref32['history'])}, "
+        f"{time.perf_counter() - t_phase - t_ref}s")
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(ref["routes"], Path(tmp) / "routes.pt")
+        t0 = time.perf_counter()
+        try:
+            secs = multihost.spawn(model_parallel_rank, 4,
+                                   (str(src), f"{tmp}/store", tmp,
+                                    "cuda:0" if dev.type == "cuda" else
+                                    "cpu",
+                                    {k: globals()[k] for k in MP_SETTINGS}),
+                                   MP_LIMIT_S)
+        except RuntimeError as exc:
+            record_gate("phase 18 ranks", math.inf)
+            failed.append(str(exc))
+            secs, ranks = time.perf_counter() - t0, []
+        else:
+            ranks = [torch.load(Path(tmp) / f"rank{r}.pt") for r in range(4)]
+        if ranks:
+            saved = ckpt.restore(Path(tmp) / "ckpt", MP_STEPS,
+                                 ref["params"])
+    res: dict = {"spawn_s": secs, "eval_launches": 0}
+    if ranks:
+        r0 = ranks[0]
+        # (a) the steps
+        worst = {"loss": 0.0, "grad_norm": 0.0}
+        finite = True
+        for h, w in zip(r0["history"], ref["history"]):
+            for key in worst:
+                finite &= math.isfinite(h[key])
+                worst[key] = max(worst[key], abs(h[key] - w[key])
+                                 / abs(w[key]))
+        def rel(a, b):
+            return float(torch.linalg.vector_norm(a.float() - b.float())
+                         ) / max(float(torch.linalg.vector_norm(b.float())),
+                                 1e-30)
+
+        per_leaf = {n: (rel(saved[n], p), rel(ref32["params"][n], p))
+                    for n, p in ref["params"].items()}
+        pworst = max(((e / (MP_PARAM_MULT * f) if f else
+                       (0.0 if e == 0 else math.inf)), n, e, f)
+                     for n, (e, f) in per_leaf.items())
+        record_gate("phase 18 (a) loss", worst["loss"] / MP_LOSS_RTOL)
+        record_gate("phase 18 (a) grad norm",
+                    worst["grad_norm"] / MP_NORM_RTOL)
+        record_gate("phase 18 (a) parameters", pworst[0])
+        if not finite or worst["loss"] > MP_LOSS_RTOL or \
+                worst["grad_norm"] > MP_NORM_RTOL:
+            failed.append(f"(a) steps {r0['history']} vs unsharded "
+                          f"{ref['history']}: worst {worst}")
+        if not pworst[0] <= 1.0:
+            failed.append(f"(a) parameter {pworst[1]}: {pworst[2]} of its "
+                          f"norm, floor {pworst[3]}")
+        same = all(r["history"][i][k] == r0["history"][i][k]
+                   for r in ranks for i in range(MP_STEPS)
+                   for k in ("loss", "grad_norm"))
+        if not same:
+            failed.append("(a) the ranks' global losses differ")
+        steady = [h["ms"] for h in r0["history"][1:]]
+        wsteady = [h["ms"] for h in ref["history"][1:]]
+        log(f"[18] (a) sharded on a {MP_MESH[0]} x {MP_MESH[1]} (data, "
+            f"model) mesh of ranks on {dev}: rank 0 steps "
+            f"{json.dumps(r0['history'])}; step ms (host clock, "
+            f"synchronized) first {r0['history'][0]['ms']} then "
+            f"{json.dumps(steady)}, unsharded first "
+            f"{ref['history'][0]['ms']} then {json.dumps(wsteady)}; worst "
+            f"relative loss / grad-norm difference {json.dumps(worst)}; "
+            f"parameters: the worst leaf against {MP_PARAM_MULT} x its "
+            f"float32 floor {pworst[0]} ({pworst[1]}: {pworst[2]} of its "
+            f"norm, floor {pworst[3]}), the largest difference "
+            f"{max(e for e, _ in per_leaf.values())} of a norm; peak memory "
+            f"per rank GB "
+            f"{json.dumps([r['peak_gb'] for r in ranks])}; collective "
+            f"bytes a step per rank {json.dumps([[h['bytes'] for h in r['history']] for r in ranks])}, "
+            f"by op (rank 0, whole phase) {json.dumps(r0['bytes_by_op'])}; "
+            f"routing agreement without replay {json.dumps([r['agree'] for r in ranks])}; "
+            f"sharded init s {json.dumps([r['init_s'] for r in ranks])}")
+        if "gloo_cuda" in r0:
+            took = [k for k, v in r0["gloo_cuda"].items() if v]
+            staged = [k for k, v in r0["gloo_cuda"].items() if not v]
+            log(f"[18] gloo on CUDA tensors took {took}; staged through "
+                f"pinned host buffers: {staged}")
+        # (b) the evaluation loss
+        ev = r0["eval"]["loss"]
+        diff = abs(ev["auto"]["loss"] - ev["off"]["loss"])
+        floor = abs(ev["off32"]["loss"] - ev["off"]["loss"])
+        bound_ = max(2 * floor, EVAL_LOSS_RTOL * abs(ev["off"]["loss"]))
+        record_gate("phase 18 (b) eval loss", diff / bound_)
+        launches = [r["eval"]["launches"].get("flash_attention")
+                    for r in ranks]
+        want = MP_DEPTH if dev.type == "cuda" else 0
+        res["eval_launches"] = sum(launches)
+        log(f"[18] (b) sharded evaluation loss (no_grad): kernels "
+            f"{ev['auto']['loss']}, plain {ev['off']['loss']}, plain in "
+            f"float32 {ev['off32']['loss']}; |kernels - plain| {diff}, bound "
+            f"{bound_}; ms {json.dumps({k: v['ms'] for k, v in ev.items()})}; "
+            f"flash_attention launches per rank {launches} (one a layer: "
+            f"{want})")
+        if not diff <= bound_:
+            failed.append(f"(b) evaluation loss {ev}")
+        if launches != [want] * 4:
+            failed.append(f"(b) flash_attention launched {launches}")
+        # (c) elastic
+        eq = [r.get("reshard_equal") for r in ranks[:2]]
+        record_gate("phase 18 (c) reshard", 0.0 if all(eq) and
+                    r0["one_device_equal"] else math.inf)
+        log(f"[18] (c) plan_for(2, model_degree=2): {json.dumps(r0['plan'])}; "
+            f"reshard onto it bit-equal {eq} ({r0['reshard_blocks']} leaves "
+            f"split), onto one device {r0['one_device_equal']}")
+        if not all(eq) or not r0["one_device_equal"]:
+            failed.append(f"(c) reshard {eq}, one device "
+                          f"{r0['one_device_equal']}")
+        # (d) collectives
+        hier = max(r["collectives"]["hier_rel_err"] for r in ranks)
+        pipe = max(r["collectives"]["pipeline_err"] for r in ranks)
+        record_gate("phase 18 (d) hierarchical reduce", hier / 1e-6)
+        record_gate("phase 18 (d) pipeline", pipe / 1e-5)
+        log(f"[18] (d) hierarchical_grad_reduce on (pod 2, data 2) of "
+            f"{MP_HIER_SHAPE}: worst relative error {hier}; pipeline_apply "
+            f"{MP_PIPE[0]} stages x {MP_PIPE[1]} microbatches: max error "
+            f"{pipe}")
+        if not hier <= 1e-6 or not pipe <= 1e-5:
+            failed.append(f"(d) hierarchical {hier}, pipeline {pipe}")
+        res.update(ranks=[{k: r[k] for k in ("history", "peak_gb", "agree")}
+                          for r in ranks], reference=ref["history"],
+                   worst=worst, param_worst=pworst[0])
+    del ref, ref32
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    log(f"[18] phase 18: {secs}s (budget 120 s; spawn to exit {res['spawn_s']}s)")
+    if failed:
+        if raise_on_fail:
+            raise AssertionError("phase 18: " + "; ".join(failed))
+        for f in failed:
+            log(f"    gate failed: {f}")
+    return res
 
 
 # Planted faults (``--faults``): each edits one kernel source of a copy of
@@ -2805,8 +3346,8 @@ def main(argv=None) -> int:
                                  "CUDA card (see the module's docstring).")
     ap.add_argument("--gates", nargs="*", type=int, metavar="PHASE",
                     help="run phase 1 and the gates of phases 2, 3, 5, 6, "
-                         "7, 9, 11 and 15 (or of the phases named, 16 "
-                         "and 17 among them), recording "
+                         "7, 9, 11 and 15 (or of the phases named, 16, "
+                         "17 and 18 among them), recording "
                          "every gate instead of stopping at the first that "
                          "fails; the last line is the gates' worst "
                          "multiples")
@@ -2917,6 +3458,8 @@ def main(argv=None) -> int:
             zoo_models(dev, None, raise_on_fail=False)
         if 17 in phases:
             training(dev, raise_on_fail=False)
+        if 18 in phases:
+            model_parallel(dev, src, raise_on_fail=False)
         print(json.dumps({"gates": GATES}), flush=True)
         return 0
 
@@ -3238,6 +3781,9 @@ def main(argv=None) -> int:
 
     # --------------------------------------------------------------- 17
     trained = training(dev)
+
+    # --------------------------------------------------------------- 18
+    parallel = model_parallel(dev, src)
     check_imports()
 
     # ----------------------------------------------------------- output
@@ -3279,6 +3825,8 @@ def main(argv=None) -> int:
             "training_eval_launches": {
                 arch: e["launches"][name]
                 for arch, e in trained["eval"].items()},
+            **({"sharded_eval_launches": parallel["eval_launches"]}
+               if name == "flash_attention" else {}),
             **a})
     for name, line in (("ssd_scan", 62), ("rglru_scan", 46)):
         record["kernels"].append({

@@ -124,12 +124,18 @@ def latest_step(directory: str | Path) -> int | None:
     return max(steps) if steps else None
 
 
-def restore(directory: str | Path, step: int, like: Tree) -> Tree:
+def restore(directory: str | Path, step: int, like: Tree,
+            shardings: Tree | None = None) -> Tree:
     """The checkpoint of ``step`` in the structure of ``like`` (a tree of
     tensors): each leaf a new tensor with the dtype and on the device of
-    ``like``'s leaf at the same path."""
+    ``like``'s leaf at the same path. With ``shardings`` (a tree of the
+    same structure whose leaves are ``repro_torch.distributed.sharding
+    .NamedSharding``s, or None for a whole leaf), each leaf is this
+    rank's block under its placement — the mesh may differ from the one
+    that saved (elastic restart): checkpoints hold whole tensors."""
     ckpt_dir = Path(directory) / f"step_{step:08d}"
     meta = json.loads((ckpt_dir / "meta.json").read_text())
+    placed = dict(_flatten(shardings)) if shardings is not None else {}
     leaves = {}
     with np.load(ckpt_dir / "arrays.npz") as data:
         for path, leaf in _flatten(like):
@@ -140,6 +146,9 @@ def restore(directory: str | Path, step: int, like: Tree) -> Tree:
                     torch.bfloat16)
             else:
                 t = torch.from_numpy(arr)
+            sh = placed.get(path)
+            if sh is not None:
+                t = sh.shard(t).contiguous()
             leaves[path] = t.to(device=leaf.device, dtype=leaf.dtype)
     return _unflatten_like(like, leaves)
 

@@ -2,11 +2,11 @@
 
 A copy of the JAX package's ``configs/base.py`` (it imports no JAX). Every
 architecture registers a full-size config and a ``smoke()`` reduction of
-the same family (used by the CPU tests). The dry-run's input shapes and
-cells are not ported yet: ``InputShape``, ``SHAPES`` and ``cells`` come
-with the model-parallel layer and ``launch/specs.py`` (ROADMAP queue 1
-item 14e) and the dry-run (item 15); ``launch/train.py`` needs none of
-them.
+the same family (used by the CPU tests). ``InputShape``, ``SHAPES`` and
+``cells`` are the dry-run's (arch x input shape) cells: the
+model-parallel layer (ROADMAP queue 1 item 14e) reads them for its
+layouts and ``launch/specs.py`` for its stand-ins; the dry-run itself is
+item 15.
 """
 from __future__ import annotations
 
@@ -221,8 +221,24 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
-# Registry
+# Shapes (assigned) + registry
 # ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
 
 
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
@@ -250,3 +266,13 @@ def get_smoke_config(name: str) -> ModelConfig:
 def list_architectures() -> list[str]:
     from repro_torch import configs  # noqa: F401
     return sorted(_REGISTRY)
+
+
+def cells(name: str) -> list[InputShape]:
+    """The (arch x shape) cells that are RUN for this arch; long_500k is
+    skipped for pure full-attention archs (documented in DESIGN.md)."""
+    cfg = get_config(name)
+    out = [SHAPES["train_4k"], SHAPES["prefill_32k"], SHAPES["decode_32k"]]
+    if cfg.long_context_ok:
+        out.append(SHAPES["long_500k"])
+    return out

@@ -102,12 +102,58 @@ def initialize(coordinator_address: str | None = None,
     return True
 
 
+def spawn(fn, n: int, args: tuple = (), limit_s: float = 600.0) -> float:
+    """Run ``fn(rank, *args)`` in ``n`` spawned processes (a world on one
+    machine: the CPU, or ranks sharing a card) and join them within
+    ``limit_s`` seconds. A rank that raises exits nonzero, and the others,
+    which would wait on it in a collective, are killed then; a rank still
+    running at the deadline is killed, as are the others then. Raises
+    ``RuntimeError`` unless every rank exited 0; returns the seconds from
+    the first start to the last exit."""
+    import multiprocessing
+    import time
+    from multiprocessing.connection import wait
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=fn, args=(r, *args)) for r in range(n)]
+    t0 = time.monotonic()
+    for p in procs:
+        p.start()
+    pending = {p.sentinel: p for p in procs}
+    failed = False
+    try:
+        while pending and not failed:
+            left = t0 + limit_s - time.monotonic()
+            if left <= 0:
+                break
+            for sentinel in wait(list(pending), timeout=left):
+                p = pending.pop(sentinel)
+                p.join()
+                failed |= p.exitcode != 0
+    finally:
+        hung = [] if failed else [r for r, p in enumerate(procs)
+                                  if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=30.0)
+    codes = [p.exitcode for p in procs]
+    if hung or any(c != 0 for c in codes):
+        raise RuntimeError(f"spawned ranks exited with {codes}"
+                           + (f"; ranks {hung} hung past {limit_s} s"
+                              if hung else ""))
+    return time.monotonic() - t0
+
+
 def shutdown() -> None:
     """Leave the process group and clear the registered slots and the
     default sweep mesh ``initialize`` installed."""
     from repro_torch.launch import mesh as mesh_mod
 
+    from repro_torch.distributed import collectives
+
     _SLOTS.clear()
+    collectives.forget_groups()
     mesh_mod.set_default_sweep_mesh(None)
     if dist.is_initialized():
         dist.destroy_process_group()

@@ -28,10 +28,14 @@ place cell placement is declared: everything keyed by the cell axis is
 split into the slots' contiguous blocks, and the ``put_*`` constructors
 return, for each slot of THIS process, its block on its device.
 
-``make_production_mesh`` / ``make_test_mesh`` belong to the LM
-substrate's model-parallel layer (sharded training and expert
-parallelism), which is not ported yet (ROADMAP queue 1 item 14e); the
-port trains on one device (``repro_torch.launch.train``).
+``make_production_mesh`` / ``make_test_mesh`` are the LM substrate's
+meshes (the model-parallel layer, ``repro_torch.distributed.sharding``):
+a ``torch.distributed.device_mesh.DeviceMesh`` with the axis names
+``("data", "model")`` or ``("pod", "data", "model")`` over the current
+process group, one rank a mesh point. Its device type is ``"cpu"``: its
+groups are gloo's (NCCL takes one rank a card), while each rank's
+tensors live on its own device (``repro_torch.distributed.collectives``
+stages what gloo refuses on the card).
 """
 from __future__ import annotations
 
@@ -40,9 +44,43 @@ import dataclasses
 import sys
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.device import resolve_device
 from repro_torch.distributed import multihost
+
+
+def _lm_mesh(shape: tuple[int, ...], axes: tuple[str, ...]) -> DeviceMesh:
+    """A mesh of ``shape`` over every rank of the process group, rank r
+    at the r-th point in row-major order; a group of another size
+    raises a ``ValueError`` that names the size needed."""
+    n = 1
+    for s in shape:
+        n *= s
+    have = dist.get_world_size() if dist.is_initialized() else 1
+    if have != n:
+        raise ValueError(
+            f"a {'x'.join(map(str, shape))} {axes} mesh needs a process "
+            f"group of {n} ranks, and this one has {have} (start the run "
+            f"with world_size={n}; multihost.initialize joins one)")
+    if not dist.is_initialized():
+        raise ValueError("a one-point mesh still needs a process group "
+                         "(torch.distributed.init_process_group)")
+    return DeviceMesh("cpu", torch.arange(n).reshape(shape),
+                      mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _lm_mesh(shape, axes)
+
+
+def make_test_mesh(n_data: int = 2, n_model: int = 4) -> DeviceMesh:
+    """Small mesh for tests and ``chip_smoke.py`` (``n_data x n_model``
+    ranks: spawned processes, on the CPU or sharing a card)."""
+    return _lm_mesh((n_data, n_model), ("data", "model"))
 
 
 @dataclasses.dataclass(frozen=True)

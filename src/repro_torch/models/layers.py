@@ -34,14 +34,24 @@ def truncated_normal(shape, scale: float, generator: torch.Generator,
     ``jax.random.truncated_normal(key, -2, 2, shape, f32) * scale``)."""
     dev = generator.device
     lo, hi = (0.5 * (1.0 + math.erf(b / math.sqrt(2.0))) for b in (-2.0, 2.0))
-    x = torch.rand(shape, generator=generator, device=dev,
-                   dtype=torch.float32)
+    # a generator on the meta device (``MetaGenerator``) builds shapes only
+    x = torch.rand(shape, generator=None if dev.type == "meta" else generator,
+                   device=dev, dtype=torch.float32)
     # in place, one float32 buffer: a 256,000 x 8,192 head or a (256,
     # 7168, 2048) expert stack is drawn beside a model that nearly fills
     # the card
     x.mul_(hi - lo).add_(lo).mul_(2.0).sub_(1.0).clamp_(-1.0, 1.0)
     x.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0).mul_(scale)
     return x.to(dtype)
+
+
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` where a model is built on
+    ``torch.device("meta")``: every init function reads only its
+    ``device`` and hands it to ``truncated_normal``, which then draws
+    nothing. ``launch/specs.py`` builds full-size models so."""
+
+    device = torch.device("meta")
 
 
 def frozen(x: torch.Tensor) -> nn.Parameter:
@@ -279,6 +289,20 @@ def chunked_cross_entropy(table: torch.Tensor, h: torch.Tensor,
 
     ``n_valid``: real vocabulary size when the table is padded (padded
     columns are set to -1e30 before the logsumexp)."""
+    total, count = chunked_ce_sums(table, h, targets, mask, chunk,
+                                   final_cap, n_valid)
+    return total / torch.clamp(count, min=1.0)
+
+
+def chunked_ce_sums(table: torch.Tensor, h: torch.Tensor,
+                    targets: torch.Tensor, mask: torch.Tensor | None = None,
+                    chunk: int = 512, final_cap: float | None = None,
+                    n_valid: int | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``chunked_cross_entropy``'s two sums, float32: the masked
+    per-position losses and the count of valid targets. A batch split
+    over ranks (``repro_torch.distributed``) adds each across the ranks
+    before it divides."""
     b, s, _ = h.shape
     if s % chunk:
         raise ValueError(f"seq {s} not divisible by loss chunk {chunk}")
@@ -299,4 +323,4 @@ def chunked_cross_entropy(table: torch.Tensor, h: torch.Tensor,
             nll, cnt = _ce_chunk(*args)
         total = total + nll
         count = count + cnt
-    return total / torch.clamp(count, min=1.0)
+    return total, count

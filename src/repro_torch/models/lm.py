@@ -11,8 +11,10 @@ registers. A model is a stack of residual blocks described by
     "mla_moe"     DeepSeek MLA        mixture-of-experts
     "rec"         RG-LRU recurrence   dense
     "ssd"         Mamba-2 SSD         (none)
-Expert parallelism under a mesh is not ported (ROADMAP queue 1 item
-14e): ``_run_moe`` is the JAX package's one-device path.
+Under a ``ShardCtx`` (``repro_torch.distributed``, ROADMAP queue 1 item
+14e) each rank runs the stack on its shard of the batch, and the MoE
+layers are expert-parallel: ``_run_moe`` is the JAX package's
+``shard_map`` path written out in collectives.
 
 ``LM`` is an ``nn.Module``: the embedding (``(K, V, D)``, one table per
 codebook, for audio), a ``ModuleList`` of blocks in layer order
@@ -35,6 +37,7 @@ evaluation loss) launches them.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -42,6 +45,8 @@ from torch import nn
 from torch.utils import checkpoint as ckpt_utils
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives
+from repro_torch.distributed.ctx import ShardCtx, batch_axes, check_supported
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, mla, moe, rglru, ssd
 from repro_torch.models.layers import mlp, rmsnorm
@@ -149,39 +154,65 @@ def init_block(generator: torch.Generator, cfg: ModelConfig,
                  norm() if cfg.post_norm else None, mlp_kind)
 
 
-def init(generator: torch.Generator, cfg: ModelConfig) -> LM:
-    """A model with random weights drawn from ``generator``, on its
-    device, from the JAX package's distributions (not its bits)."""
+def init_parts(generator: torch.Generator, cfg: ModelConfig):
+    """The model's parts in the order ``init`` draws them, one at a time,
+    as (name, module): ``embed``, ``patch_proj`` (a VLM), ``blocks.<i>``
+    in layer order, ``final_norm``, ``lm_head`` (an untied head) and
+    ``mtp`` (deepseek). A part's parameter ``w`` is the model's
+    ``<name>.w``. A sharded init (``repro_torch.distributed.sharding
+    .ShardedModel``) keeps each part's shard and drops the rest before
+    the next is drawn; the draws are ``init``'s, bit for bit."""
     dev = generator.device
     vocab = cfg.vocab_padded
     audio = cfg.family == "audio"
-    with torch.no_grad():
-        embed = layers.init_embedding(generator, vocab, cfg.d_model,
-                                      n_tables=cfg.n_codebooks if audio
-                                      else 0)
-        patch_proj = (layers.init_linear(generator, cfg.patch_stub.embed_dim,
-                                         cfg.d_model)
-                      if cfg.patch_stub is not None else None)
-        blocks = [init_block(generator, cfg, kind)
-                  for kind in cfg.layer_kinds]
-        final_norm = layers.RMSNorm(cfg.d_model, dev)
-        lm_head = None
-        if not cfg.tie_embeddings:
-            shape = ((cfg.n_codebooks, cfg.d_model, vocab) if audio
-                     else (cfg.d_model, vocab))
-            lm_head = layers.Linear(shape, device=dev)
-            for w in (lm_head.w if audio else [lm_head.w]):
-                w.copy_(layers.truncated_normal(
-                    (cfg.d_model, vocab), cfg.d_model**-0.5, generator))
-        mtp = None
-        if cfg.mtp:
-            mtp = MTP(layers.init_linear(generator, 2 * cfg.d_model,
-                                         cfg.d_model),
-                      layers.RMSNorm(cfg.d_model, dev),
-                      layers.RMSNorm(cfg.d_model, dev),
-                      init_block(generator, cfg,
-                                 "mla" if cfg.mla else "global"))
-    return LM(cfg, embed, blocks, final_norm, lm_head, patch_proj, mtp)
+
+    def lm_head():
+        shape = ((cfg.n_codebooks, cfg.d_model, vocab) if audio
+                 else (cfg.d_model, vocab))
+        head = layers.Linear(shape, device=dev)
+        for w in (head.w if audio else [head.w]):
+            w.copy_(layers.truncated_normal(
+                (cfg.d_model, vocab), cfg.d_model**-0.5, generator))
+        return head
+
+    def mtp():
+        return MTP(layers.init_linear(generator, 2 * cfg.d_model,
+                                      cfg.d_model),
+                   layers.RMSNorm(cfg.d_model, dev),
+                   layers.RMSNorm(cfg.d_model, dev),
+                   init_block(generator, cfg,
+                              "mla" if cfg.mla else "global"))
+
+    parts = [("embed", lambda: layers.init_embedding(
+        generator, vocab, cfg.d_model,
+        n_tables=cfg.n_codebooks if audio else 0))]
+    if cfg.patch_stub is not None:
+        parts.append(("patch_proj", lambda: layers.init_linear(
+            generator, cfg.patch_stub.embed_dim, cfg.d_model)))
+    parts += [(f"blocks.{i}", functools.partial(init_block, generator, cfg,
+                                                kind))
+              for i, kind in enumerate(cfg.layer_kinds)]
+    parts.append(("final_norm", lambda: layers.RMSNorm(cfg.d_model, dev)))
+    if not cfg.tie_embeddings:
+        parts.append(("lm_head", lm_head))
+    if cfg.mtp:
+        parts.append(("mtp", mtp))
+    for name, make in parts:
+        with torch.no_grad():
+            part = make()
+        yield name, part
+
+
+def init(generator: torch.Generator, cfg: ModelConfig) -> LM:
+    """A model with random weights drawn from ``generator``, on its
+    device, from the JAX package's distributions (not its bits). A
+    ``layers.MetaGenerator`` builds it on the meta device (shapes and
+    dtypes only)."""
+    parts = dict(init_parts(generator, cfg))
+    blocks = [parts[f"blocks.{i}"] for i in range(len(cfg.layer_kinds))]
+    return LM(cfg, parts["embed"], blocks, parts["final_norm"],
+              parts.get("lm_head"), parts.get("patch_proj"),
+              parts.get("mtp"))
 
 
 def _head_table(model: LM) -> torch.Tensor:
@@ -193,12 +224,74 @@ def _head_table(model: LM) -> torch.Tensor:
     return model.lm_head.w.transpose(-1, -2)
 
 
+class _Routed:
+    """The routed part of an MoE module (router and expert weights,
+    without the shared expert), as ``moe.moe_mlp`` reads it."""
+
+    def __init__(self, p: moe.MoE):
+        self.router, self.w_up, self.w_out = p.router, p.w_up, p.w_out
+        if hasattr(p, "w_gate"):
+            self.w_gate = p.w_gate
+
+
+def _ep_slice(ctx: ShardCtx, e: int) -> tuple[int, int]:
+    """(e_start, e_local): the experts of this rank, its index over
+    ``ctx.ep_axes`` (major to minor) times ``e / |ep|``."""
+    sizes = collectives.mesh_sizes(ctx.mesh)
+    ep_size = 1
+    for a in ctx.ep_axes:
+        ep_size *= sizes[a]
+    if e % ep_size:
+        raise ValueError(f"{e} experts do not split over the {ep_size} "
+                         f"ranks of {ctx.ep_axes}")
+    e_local = e // ep_size
+    idx = collectives.flat_index(collectives.mesh_coords(ctx.mesh), sizes,
+                                 ctx.ep_axes)
+    return idx * e_local, e_local
+
+
 def _run_moe(p: moe.MoE, x: torch.Tensor, cfg: ModelConfig,
-             capacity: int | None = None) -> tuple[torch.Tensor,
-                                                   torch.Tensor]:
-    """The MoE layer on one device: ``moe_mlp`` over every expert (the
-    JAX package's path without a mesh; expert parallelism is 14e)."""
-    return moe.moe_mlp(p, x, cfg.moe, cfg.mlp_act, capacity=capacity)
+             capacity: int | None = None, ctx: ShardCtx | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The MoE layer: ``moe_mlp`` over every expert on one device; under
+    a ctx, expert parallelism over ``ctx.ep_axes``, as the JAX package's
+    ``shard_map`` runs it. ``p`` then holds this rank's experts
+    (``_ep_slice``) and the full router. The tokens are all-gathered over
+    the EP axes that shard them (``gather_axes``); the partial outputs of
+    the local experts are summed over the EP axes that replicate the
+    tokens (``psum_axes``) and reduce-scattered back over the others, in
+    float32, rounded once to the activations' dtype after (as the
+    one-device sum over a token's k choices rounds once). The
+    shared expert runs outside the EP region (inside, the sum would count
+    it |ep| times). The aux loss is the EP group's: every EP rank routes
+    the same tokens with the same full router, so the JAX package's mean
+    over the EP ranks is each one's own value."""
+    mcfg = cfg.moe
+    if ctx is None:
+        return moe.moe_mlp(p, x, mcfg, cfg.mlp_act, capacity=capacity)
+    check_supported(ctx)
+    mesh, ep_axes = ctx.mesh, tuple(ctx.ep_axes)
+    e_start, e_local = _ep_slice(ctx, mcfg.padded_experts)
+    if p.w_up.shape[0] != e_local:
+        raise ValueError(f"the MoE holds {p.w_up.shape[0]} experts, this "
+                         f"rank's slice of {ep_axes} is {e_local}")
+    b_axes = batch_axes(ctx)
+    gather_axes = [a for a in ep_axes if a in b_axes]
+    psum_axes = [a for a in ep_axes if a not in b_axes]
+    xg = x
+    for a in gather_axes:
+        xg = collectives.gather(xg, mesh, (a,), 0)
+    y, aux = moe.moe_mlp(_Routed(p), xg, mcfg, cfg.mlp_act, e_start=e_start,
+                         e_local=e_local, capacity=capacity,
+                         out_dtype=torch.float32)
+    if psum_axes:
+        y = collectives.sum_over(y, mesh, psum_axes)
+    for a in reversed(gather_axes):
+        y = collectives.scatter_sum(y, mesh, (a,), 0)
+    y = y.to(x.dtype)
+    if hasattr(p, "shared"):
+        y = y + mlp(p.shared, x, cfg.mlp_act)
+    return y, aux
 
 
 def counted_params(model: LM) -> int:
@@ -267,7 +360,7 @@ def _attn_kw(cfg: ModelConfig, mixer: str, kernel: str) -> dict:
 
 
 def _mlp_residual(p: Block, x: torch.Tensor, cfg: ModelConfig,
-                  capacity: int | None = None
+                  capacity: int | None = None, ctx: ShardCtx | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """The block's MLP (dense or MoE) and its residual; a kind without an
     MLP (``ssd``) passes ``x`` through. ``capacity``: the MoE's slots per
@@ -278,7 +371,7 @@ def _mlp_residual(p: Block, x: torch.Tensor, cfg: ModelConfig,
     aux = None
     h = rmsnorm(p.mlp_norm, x, cfg.norm_eps)
     if p.mlp_kind == "moe":
-        h, aux = _run_moe(p.mlp, h, cfg, capacity=capacity)
+        h, aux = _run_moe(p.mlp, h, cfg, capacity=capacity, ctx=ctx)
     else:
         h = mlp(p.mlp, h, cfg.mlp_act)
     if cfg.post_norm:
@@ -287,10 +380,12 @@ def _mlp_residual(p: Block, x: torch.Tensor, cfg: ModelConfig,
 
 
 def block_forward(p: Block, x: torch.Tensor, cfg: ModelConfig,
-                  positions: torch.Tensor, kernel: str
+                  positions: torch.Tensor, kernel: str,
+                  ctx: ShardCtx | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """One residual block over a full sequence, no cache. Returns (x,
-    aux loss or None)."""
+    aux loss or None). Under a ctx, ``x`` is this rank's shard of the
+    batch and only the MoE talks to other ranks."""
     h = rmsnorm(p.pre_norm, x, cfg.norm_eps)
     if p.kind == "rec":
         h = rglru.rglru_block(p.mixer, h, cfg.rglru, kernel=kernel)
@@ -304,30 +399,45 @@ def block_forward(p: Block, x: torch.Tensor, cfg: ModelConfig,
                            **_attn_kw(cfg, p.kind, kernel))
     if cfg.post_norm:
         h = rmsnorm(p.post_mixer_norm, h, cfg.norm_eps)
-    return _mlp_residual(p, x + h, cfg)
+    return _mlp_residual(p, x + h, cfg, ctx=ctx)
+
+
+def _using(use, parts):
+    """``use(parts)``, a sharded model's gather of those parts for the
+    length of a ``with`` (``ShardedModel.use``), or nothing: a whole
+    model holds its parameters."""
+    return use(parts) if use is not None else contextlib.nullcontext()
 
 
 def forward_hidden(model: LM, x: torch.Tensor, positions: torch.Tensor, *,
-                   kernel: str = "off") -> tuple[torch.Tensor, torch.Tensor]:
+                   kernel: str = "off", ctx: ShardCtx | None = None,
+                   use=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Embedded inputs (B, S, D) -> final hidden states, no cache.
     Returns (h, aux loss float32). With ``cfg.remat`` and grad enabled,
     each repeat of ``cfg.pattern`` is recomputed in backward
     (``torch.utils.checkpoint``), as ``jax.checkpoint`` does over the JAX
     package's scanned superblocks under ``remat_policy="full"`` (the
     policy of every config; ``"dots"`` raises); ``cfg.prefix``/``suffix``
-    are not."""
+    are not. Under a ctx (a batch-split layout; ``seq`` and ``kv_seq``
+    set raise) ``x`` is this rank's shard of the batch. ``use``: see
+    ``loss_fn``; each group of blocks (a repeat, or a block of the prefix
+    or suffix) is gathered inside its forward, and so inside its
+    recompute too."""
+    check_supported(ctx)
     cfg = model.cfg
     blocks = list(model.blocks)
     n_pre, n_pat = len(cfg.prefix), len(cfg.pattern)
     n_rep = n_pre + cfg.repeats * n_pat
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def body(h, group):
+    def body(h, span):
         aux_sb = None
-        for p in group:
-            h, aux = block_forward(p, h, cfg, positions, kernel)
-            if aux is not None:
-                aux_sb = aux if aux_sb is None else aux_sb + aux
+        with _using(use, [f"blocks.{i}" for i in span]):
+            for i in span:
+                h, aux = block_forward(blocks[i], h, cfg, positions, kernel,
+                                       ctx)
+                if aux is not None:
+                    aux_sb = aux if aux_sb is None else aux_sb + aux
         return h, aux_sb
 
     run = body
@@ -337,12 +447,12 @@ def forward_hidden(model: LM, x: torch.Tensor, positions: torch.Tensor, *,
                              f"recomputes whole repeats only ('full')")
         run = functools.partial(ckpt_utils.checkpoint, body,
                                 use_reentrant=False, preserve_rng_state=False)
-    groups = ([blocks[i:i + 1] for i in range(n_pre)]
-              + [blocks[i:i + n_pat] for i in range(n_pre, n_rep, n_pat)]
-              + [blocks[i:i + 1] for i in range(n_rep, len(blocks))])
-    for gi, group in enumerate(groups):
+    spans = ([range(i, i + 1) for i in range(n_pre)]
+             + [range(i, i + n_pat) for i in range(n_pre, n_rep, n_pat)]
+             + [range(i, i + 1) for i in range(n_rep, len(blocks))])
+    for gi, span in enumerate(spans):
         repeat = n_pre <= gi < n_pre + cfg.repeats
-        x, aux = (run if repeat else body)(x, group)
+        x, aux = (run if repeat else body)(x, span)
         if aux is not None:
             aux_total = aux_total + aux
     return x, aux_total
@@ -400,9 +510,50 @@ def embed_inputs(model: LM, batch: dict[str, torch.Tensor]):
     return x, positions, tgt, mask
 
 
+class _Shares:
+    """Under a ctx, a rank's loss is its SHARE of the global loss: the
+    sum of the shares over every rank of the mesh is the loss of the
+    whole batch, and the sum over the ranks of their gradients is its
+    gradient (the convention of ``repro_torch.distributed.collectives``).
+    A cross entropy's share is the rank's sum of per-position losses over
+    the global count of valid targets, divided by the number of ranks
+    that hold the same rows (``n_rep``: those along the axes off
+    ``ctx.batch``); an aux loss's share is the EP group's value over the
+    world size (its mean over the groups)."""
+
+    def __init__(self, ctx: ShardCtx):
+        self.ctx = ctx
+        sizes = collectives.mesh_sizes(ctx.mesh)
+        self.axes = tuple(ctx.mesh.mesh_dim_names)
+        self.world = 1
+        for n in sizes.values():
+            self.world *= n
+        split = 1
+        for a in batch_axes(ctx):
+            split *= sizes[a]
+        self.n_rep = self.world // split
+
+    def ce(self, total: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+        count = collectives.all_reduce(count.detach(), self.ctx.mesh,
+                                       self.axes) / self.n_rep
+        return total / torch.clamp(count, min=1.0) / self.n_rep
+
+    def aux(self, aux: torch.Tensor) -> torch.Tensor:
+        return aux / self.world
+
+    def value(self, share: torch.Tensor) -> torch.Tensor:
+        """The global value of a share: its sum over the ranks."""
+        return collectives.all_reduce(share.detach(), self.ctx.mesh,
+                                      self.axes)
+
+
+# the parts of a model outside its block stack (``init_parts``' names)
+OUTER_PARTS = ("embed", "patch_proj", "final_norm", "lm_head", "mtp")
+
+
 def loss_fn(model: LM, batch: dict[str, torch.Tensor], *,
-            kernel: str = "off") -> tuple[torch.Tensor,
-                                          dict[str, torch.Tensor]]:
+            kernel: str = "off", ctx: ShardCtx | None = None, use=None
+            ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """The training loss: next-token cross entropy (audio: the mean over
     the K codebooks' full logits; else ``chunked_cross_entropy`` in
     chunks of up to 512 positions) plus the MoE aux loss, plus 0.3 x the
@@ -410,10 +561,29 @@ def loss_fn(model: LM, batch: dict[str, torch.Tensor], *,
     ``loss``, ``aux_loss`` and ``mtp_loss``, detached). ``kernel="off"``
     (the default, the JAX package's ``impl="ref"``) differentiates
     through the plain versions; ``"auto"`` launches the kernels on the
-    card and is allowed only where no input requires grad."""
+    card and is allowed only where no input requires grad.
+
+    Under a ctx, ``batch`` is this rank's rows of the global batch and
+    ``model`` is a ``repro_torch.distributed.sharding.ShardedModel``'s
+    ``model``, whose parameters ``use(parts)`` gathers (whole, but this
+    rank's experts) for the length of a ``with``: the parts of
+    ``OUTER_PARTS`` for the whole loss, each block inside its forward
+    (``forward_hidden``); ``ShardedModel.loss`` passes it. ``total`` is
+    the rank's share of the global loss (``_Shares``) and the metrics
+    are the global values, the same on every rank. As in the JAX
+    package, the MoE's capacity and aux loss are each EP group's."""
+    check_supported(ctx)
+    with _using(use, OUTER_PARTS):
+        return _loss(model, batch, kernel, ctx, use)
+
+
+def _loss(model: LM, batch: dict[str, torch.Tensor], kernel: str,
+          ctx: ShardCtx | None, use):
     cfg = model.cfg
+    shares = _Shares(ctx) if ctx is not None else None
     x, positions, tgt, mask = embed_inputs(model, batch)
-    h, aux = forward_hidden(model, x, positions, kernel=kernel)
+    h, aux = forward_hidden(model, x, positions, kernel=kernel, ctx=ctx,
+                            use=use)
     h = rmsnorm(model.final_norm, h, cfg.norm_eps)
     table = _head_table(model)
     if cfg.family == "audio":
@@ -424,26 +594,39 @@ def loss_fn(model: LM, batch: dict[str, torch.Tensor], *,
                                                cfg.final_softcap)
             lse = torch.logsumexp(logits, dim=-1)
             sel = torch.gather(logits, -1, tgt[..., k:k + 1].long())[..., 0]
-            losses.append(torch.mean(lse - sel))
+            losses.append(torch.sum(lse - sel) if shares else
+                          torch.mean(lse - sel))
         main = torch.mean(torch.stack(losses))
+        if shares:
+            main = shares.ce(main, torch.tensor(float(lse.numel()),
+                                                device=main.device))
+    elif shares:
+        main = shares.ce(*layers.chunked_ce_sums(
+            table, h, tgt, mask, chunk=min(512, h.shape[1]),
+            final_cap=cfg.final_softcap, n_valid=cfg.vocab_size))
     else:
         main = layers.chunked_cross_entropy(
             table, h, tgt, mask, chunk=min(512, h.shape[1]),
             final_cap=cfg.final_softcap, n_valid=cfg.vocab_size)
+    if shares:
+        aux = shares.aux(aux)
     total = main + aux
     metrics = {"loss": main.detach(), "aux_loss": aux.detach()}
     if cfg.mtp:
-        mtp_loss = _mtp_loss(model, batch, h, positions, kernel)
+        mtp_loss = _mtp_loss(model, batch, h, positions, kernel, shares)
         total = total + 0.3 * mtp_loss
         metrics["mtp_loss"] = mtp_loss.detach()
+    if shares:
+        metrics = {k: shares.value(v) for k, v in metrics.items()}
     return total, metrics
 
 
 def _mtp_loss(model: LM, batch: dict[str, torch.Tensor], h: torch.Tensor,
-              positions: torch.Tensor, kernel: str) -> torch.Tensor:
+              positions: torch.Tensor, kernel: str,
+              shares: _Shares | None = None) -> torch.Tensor:
     """DeepSeek-style depth-1 multi-token prediction: predict t+2 from the
     main trunk's (normed) hidden state at t combined with the embedding
-    of t+1."""
+    of t+1 (under a ctx, this rank's share)."""
     cfg = model.cfg
     toks = batch["tokens"]                 # (B, S+1)
     p = model.mtp
@@ -451,12 +634,15 @@ def _mtp_loss(model: LM, batch: dict[str, torch.Tensor], h: torch.Tensor,
     h_in = torch.cat([rmsnorm(p.h_norm, h[:, :-1], cfg.norm_eps),
                       rmsnorm(p.e_norm, emb_next, cfg.norm_eps)], dim=-1)
     x = layers.linear(p.proj, h_in)        # (B, S-1, D)
-    x, _ = block_forward(p.block, x, cfg, positions[:, :-1], kernel)
+    x, _ = block_forward(p.block, x, cfg, positions[:, :-1], kernel,
+                         shares.ctx if shares else None)
     x = rmsnorm(model.final_norm, x, cfg.norm_eps)
     # the JAX package's chunk choice: the first of these that divides S-1
     n = x.shape[1]
     chunk = next(c for c in (512, 256, 128, 63, 1) if n % c == 0)
-    return layers.chunked_cross_entropy(_head_table(model), x, toks[:, 2:],
-                                        None, chunk=chunk,
-                                        final_cap=cfg.final_softcap,
-                                        n_valid=cfg.vocab_size)
+    args = (_head_table(model), x, toks[:, 2:], None)
+    kw = dict(chunk=chunk, final_cap=cfg.final_softcap,
+              n_valid=cfg.vocab_size)
+    if shares:
+        return shares.ce(*layers.chunked_ce_sums(*args, **kw))
+    return layers.chunked_cross_entropy(*args, **kw)

@@ -106,12 +106,16 @@ def expert_capacity(n_tokens: int, cfg: MoEConfig) -> int:
 
 def moe_mlp(p: MoE, x: torch.Tensor, cfg: MoEConfig, act: str, *,
             e_start: int = 0, e_local: int | None = None,
-            capacity: int | None = None
+            capacity: int | None = None, out_dtype=None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """MoE over a local slice of experts. x (..., D) -> (y, aux).
 
     ``p.w_up``/``w_gate``/``w_out`` hold only the local experts (leading
-    dim ``e_local``); ``p.router`` is always the full router."""
+    dim ``e_local``); ``p.router`` is always the full router.
+    ``out_dtype``: the dtype of the sum over a token's k choices (default
+    ``x``'s); expert parallelism takes it in float32, so that the partial
+    sums of several ranks are added before the one rounding that the
+    one-device sum makes."""
     shape = x.shape
     d = shape[-1]
     xt = x.reshape(-1, d)
@@ -151,7 +155,8 @@ def moe_mlp(p: MoE, x: torch.Tensor, cfg: MoEConfig, act: str, *,
     w_flat = (weights * local).reshape(-1).to(out_buf.dtype)
     gathered = out_buf[torch.clamp(flat_e, max=e_local - 1),
                        torch.clamp(flat_pos, max=cap - 1)]        # (T k, D)
-    y = torch.sum((gathered * w_flat[:, None]).reshape(t, k, d), dim=1)
+    y = torch.sum((gathered * w_flat[:, None]).reshape(t, k, d), dim=1,
+                  dtype=out_dtype)
 
     if hasattr(p, "shared"):  # shared expert(s): dense, every token
         y = y + mlp(p.shared, xt, act)

@@ -23,6 +23,14 @@ holds it, or the list of parameters that stack into it), and Adafactor
 runs on each JAX leaf as JAX shapes it, its state keyed by the JAX
 leaf's dotted path. Without ``groups`` every tensor is its own leaf.
 
+Sharded state. Under a mesh the parameters, gradients and state are
+each rank's blocks (``repro_torch.distributed.sharding.ShardedModel``,
+passed as ``sharded``): AdamW works element by element on them; the
+global norm of the clip sums every block once over the mesh
+(``sharded.sq_sum``); Adafactor's factored means and its update RMS
+cover the whole leaf, so they sum over the axes that shard the reduced
+dims (``sharded.leaf_mean``), and a leaf is factored by its whole shape.
+
 AdamW is the default training recipe; Adafactor is used where float32
 Adam state cannot fit (deepseek-v3-671b).
 """
@@ -58,7 +66,9 @@ def _grad(grads: Params, name: str, p: torch.Tensor) -> torch.Tensor:
     return torch.zeros_like(p) if g is None else g
 
 
-def _global_norm(grads: Params) -> torch.Tensor:
+def _global_norm(grads: Params, sharded=None) -> torch.Tensor:
+    if sharded is not None:
+        return torch.sqrt(sharded.sq_sum(grads))
     total = 0
     for g in grads.values():
         if g is not None:
@@ -66,12 +76,12 @@ def _global_norm(grads: Params) -> torch.Tensor:
     return torch.sqrt(torch.as_tensor(total, dtype=F32))
 
 
-def _clip_scale(grads: Params, max_norm: float
+def _clip_scale(grads: Params, max_norm: float, sharded=None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(min(1, max_norm / (norm + 1e-9)), norm), divided tensor by
     tensor (a division by a Python scalar goes through a rounded
     reciprocal)."""
-    norm = _global_norm(grads)
+    norm = _global_norm(grads, sharded)
     scale = torch.clamp(torch.full_like(norm, max_norm) / (norm + 1e-9),
                         max=1.0)
     return scale, norm
@@ -105,7 +115,8 @@ def _device(params: Params) -> torch.device:
 
 
 @torch.no_grad()
-def adamw_init(params: Params, groups: Groups | None = None) -> dict:
+def adamw_init(params: Params, groups: Groups | None = None,
+               sharded=None) -> dict:
     return {"m": {k: torch.zeros(p.shape, dtype=F32, device=p.device)
                   for k, p in params.items()},
             "v": {k: torch.zeros(p.shape, dtype=F32, device=p.device)
@@ -116,8 +127,9 @@ def adamw_init(params: Params, groups: Groups | None = None) -> dict:
 
 @torch.no_grad()
 def adamw_update(params: Params, grads: Params, state: dict, step,
-                 cfg: OptConfig, groups: Groups | None = None):
-    scale, norm = _clip_scale(grads, cfg.grad_clip)
+                 cfg: OptConfig, groups: Groups | None = None,
+                 sharded=None):
+    scale, norm = _clip_scale(grads, cfg.grad_clip, sharded)
     t = _steps(step, _device(params))
     bc1 = 1.0 - cfg.b1 ** t
     bc2 = 1.0 - cfg.b2 ** t
@@ -159,12 +171,13 @@ def _leaf_shape(params: Params, names: list[str], stacked: bool):
 
 
 @torch.no_grad()
-def adafactor_init(params: Params, groups: Groups | None = None) -> dict:
+def adafactor_init(params: Params, groups: Groups | None = None,
+                   sharded=None) -> dict:
     dev = _device(params)
     v_row, v_col = {}, {}
     for key, names, stacked in _leaves(params, groups):
         shape = _leaf_shape(params, names, stacked)
-        if _factored(shape):
+        if _factored(shape if sharded is None else sharded.leaf_shape(key)):
             v_row[key] = torch.zeros(shape[:-1], dtype=F32, device=dev)
             v_col[key] = torch.zeros((*shape[:-2], shape[-1]), dtype=F32,
                                      device=dev)
@@ -174,11 +187,23 @@ def adafactor_init(params: Params, groups: Groups | None = None) -> dict:
     return {"v_row": v_row, "v_col": v_col}
 
 
+def _mean(x: torch.Tensor, dim, keepdim: bool = False, *, sharded=None,
+          key: str = "", leaf_dims=None) -> torch.Tensor:
+    """``torch.mean``; with ``sharded``, the mean over a whole leaf
+    whose block ``x`` is (``leaf_dims``: the leaf's dims that ``dim``
+    reduces)."""
+    if sharded is None:
+        return (torch.mean(x) if dim is None
+                else torch.mean(x, dim=dim, keepdim=keepdim))
+    return sharded.leaf_mean(x, key, dim, leaf_dims, keepdim)
+
+
 @torch.no_grad()
 def adafactor_update(params: Params, grads: Params, state: dict, step,
-                     cfg: OptConfig, groups: Groups | None = None):
+                     cfg: OptConfig, groups: Groups | None = None,
+                     sharded=None):
     dev = _device(params)
-    scale, norm = _clip_scale(grads, cfg.grad_clip)
+    scale, norm = _clip_scale(grads, cfg.grad_clip, sharded)
     t = _steps(step, dev)
     beta2 = 1.0 - t ** (-cfg.decay_rate)
     clip_rms = torch.tensor(cfg.clip_rms, dtype=F32, device=dev)
@@ -189,17 +214,21 @@ def adafactor_update(params: Params, grads: Params, state: dict, step,
         g = _clipped(torch.stack(gs) if stacked else gs[0], scale)
         vr, vc = state["v_row"][key], state["v_col"][key]
         g2 = g * g + 1e-30
-        if _factored(g.shape):
-            vr.copy_(beta2 * vr + (1.0 - beta2) * torch.mean(g2, dim=-1))
-            vc.copy_(beta2 * vc + (1.0 - beta2) * torch.mean(g2, dim=-2))
-            r = vr / torch.clamp(torch.mean(vr, dim=-1, keepdim=True),
-                                 min=1e-30)
+        kw = dict(sharded=sharded, key=key)
+        shape = g.shape if sharded is None else sharded.leaf_shape(key)
+        if _factored(shape):
+            vr.copy_(beta2 * vr + (1.0 - beta2)
+                     * _mean(g2, -1, leaf_dims=(-1,), **kw))
+            vc.copy_(beta2 * vc + (1.0 - beta2)
+                     * _mean(g2, -2, leaf_dims=(-2,), **kw))
+            r = vr / torch.clamp(_mean(vr, -1, True, leaf_dims=(-2,),
+                                       **kw), min=1e-30)
             update = g / (torch.sqrt(r)[..., None]
                           * torch.sqrt(vc)[..., None, :] + cfg.eps)
         else:
             vc.copy_(beta2 * vc + (1.0 - beta2) * g2)
             update = g / (torch.sqrt(vc) + cfg.eps)
-        rms = torch.sqrt(torch.mean(torch.square(update)) + 1e-30)
+        rms = torch.sqrt(_mean(torch.square(update), None, **kw) + 1e-30)
         update = update / torch.clamp(rms / clip_rms, min=1.0)
         p32 = p.to(F32)
         newp = p32 - cfg.lr * (update + cfg.weight_decay * p32)
@@ -215,16 +244,19 @@ def adafactor_update(params: Params, grads: Params, state: dict, step,
 class Optimizer:
     cfg: OptConfig
 
-    def init(self, params: Params, groups: Groups | None = None) -> dict:
-        return (adamw_init(params, groups) if self.cfg.name == "adamw"
-                else adafactor_init(params, groups))
+    def init(self, params: Params, groups: Groups | None = None,
+             sharded=None) -> dict:
+        return (adamw_init(params, groups, sharded)
+                if self.cfg.name == "adamw"
+                else adafactor_init(params, groups, sharded))
 
     def update(self, params: Params, grads: Params, state: dict, step,
-               groups: Groups | None = None):
+               groups: Groups | None = None, sharded=None):
         """Writes the new parameters and state in place; returns
-        (params, state, the global grad norm before the clip)."""
+        (params, state, the global grad norm before the clip).
+        ``sharded``: the ``ShardedModel`` whose blocks these are."""
         fn = adamw_update if self.cfg.name == "adamw" else adafactor_update
-        return fn(params, grads, state, step, self.cfg, groups)
+        return fn(params, grads, state, step, self.cfg, groups, sharded)
 
 
 def make_optimizer(name: str, lr: float = 3e-4, **kw: Any) -> Optimizer:

@@ -801,3 +801,167 @@ def test_crash_resume_bitwise_on_the_card(cuda_device, tmp_path,
         for k in a:
             assert torch.equal(straight["opt"][part][k],
                                resumed["opt"][part][k]), (part, k)
+
+
+# ---------------------------------------------------------------------------
+# The model-parallel layer on the card: ranks spawned on cuda:0 over gloo
+# ---------------------------------------------------------------------------
+
+
+def _granite_no_drop():
+    """granite's smoke config with the capacity raised: no token drops."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    cfg = get_smoke_config("granite-moe-3b-a800m")
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+
+
+def _replayed(queue):
+    """``moe.route`` taking the choices of ``queue`` per new input (an
+    input seen again — a remat recompute — takes the one it took)."""
+    import contextlib
+    import hashlib
+
+    from repro_torch.models import moe
+
+    @contextlib.contextmanager
+    def ctx():
+        orig, taken, q = moe.route, {}, list(queue)
+
+        def route(router_w, xt, cfg):
+            raw = xt.detach().contiguous().view(torch.int16).cpu().numpy()
+            key = (tuple(xt.shape), hashlib.sha1(raw.tobytes()).hexdigest())
+            if key not in taken:
+                taken[key] = q.pop(0).to(xt.device)
+            idx = taken[key]
+            logits = moe.router_logits(router_w, xt, cfg)
+            return (idx, *moe.combine(logits, idx, cfg))
+
+        moe.route = route
+        try:
+            yield
+        finally:
+            moe.route = orig
+
+    return ctx()
+
+
+def _sharded_step_rank(rank: int, store: str, tmp: str) -> None:
+    """One of 2 ranks on cuda:0, a (data 1, model 2) mesh: granite's
+    smoke model, its fsdp layout (the batch over (data, model), experts
+    over model), one sharded loss and gradient, replaying the unsharded
+    run's expert choices; rank 0 saves the gathered gradients."""
+    from repro_torch.distributed import multihost, sharding
+    from repro_torch.launch.mesh import make_test_mesh
+
+    multihost.initialize(f"file://{store}", 2, rank, device="cuda:0",
+                         set_default_mesh=False, timeout_s=120.0)
+    try:
+        dev = torch.device("cuda:0")
+        cfg = _granite_no_drop()
+        mesh = make_test_mesh(1, 2)
+        ctx = sharding.make_ctx(cfg, mesh, sharding.make_layout(
+            cfg, "train", False, 2))
+        sm = sharding.ShardedModel.init(cfg, ctx, 0, dev)
+        batch = sharding.batch_rows(_markov_batch(cfg, "cpu"), ctx)
+        with _replayed(torch.load(f"{tmp}/routes.pt")):
+            total, metrics = sm.loss({k: v.to(dev) for k, v in batch.items()})
+            total.backward()
+        grads = sm.take_grads()
+        full = {n: sharding.gather_full(g, sm.specs[n], mesh).float().cpu()
+                for n, g in grads.items()}
+        if rank == 0:
+            torch.save({"loss": float(metrics["loss"]), "grads": full},
+                       f"{tmp}/out.pt")
+    finally:
+        multihost.shutdown()
+
+
+def test_sharded_train_step_on_the_card(cuda_device, tmp_path):
+    """A 2-rank sharded loss and gradient of granite's smoke model on
+    cuda:0 over gloo (the collectives gloo refuses on CUDA tensors staged
+    through host buffers) against the unsharded step on the card: with
+    one data row the EP group is the whole batch, so the unsharded loss
+    is the same function. Loss within 1e-3, grads within twice the
+    card's own bf16 floor (the float32 copy's distance)."""
+    import copy
+    import hashlib
+
+    from repro_torch.distributed import multihost
+    from repro_torch.models import lm, moe
+    model = lm.init(torch.Generator(cuda_device).manual_seed(0),
+                    _granite_no_drop()).requires_grad_(True)
+    batch = _markov_batch(model.cfg, cuda_device)
+    record, seen, orig = [], set(), moe.route
+
+    def route(router_w, xt, cfg):
+        out = orig(router_w, xt, cfg)
+        raw = xt.detach().contiguous().view(torch.int16).cpu().numpy()
+        key = (tuple(xt.shape), hashlib.sha1(raw.tobytes()).hexdigest())
+        if key not in seen:
+            seen.add(key)
+            record.append(out[0].cpu())
+        return out
+
+    moe.route = route
+    try:
+        loss, grads = _loss_grads(model, batch)
+    finally:
+        moe.route = orig
+    with _replayed(record):
+        _, grads32 = _loss_grads(copy.deepcopy(model).float(), batch)
+    torch.save(record, tmp_path / "routes.pt")
+    multihost.spawn(_sharded_step_rank, 2, (str(tmp_path / "store"),
+                                            str(tmp_path)), 300.0)
+    got = torch.load(tmp_path / "out.pt")
+    assert abs(got["loss"] - loss) <= 1e-3 * abs(loss)
+    assert _worst_rel(got["grads"], grads) <= 2 * _worst_rel(grads32, grads)
+
+
+def _collectives_rank(rank: int, store: str, tmp: str) -> None:
+    """One of 2 ranks on cuda:0: every collective of
+    ``repro_torch.distributed.collectives`` on CUDA tensors (direct or
+    staged through host buffers, as gloo takes them) and on the same
+    values on the CPU; rank 0 saves both and the probe."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.distributed import collectives, multihost
+
+    multihost.initialize(f"file://{store}", 2, rank, device="cuda:0",
+                         set_default_mesh=False, timeout_s=120.0)
+    try:
+        mesh = DeviceMesh("cpu", torch.arange(2).reshape(2),
+                          mesh_dim_names=("pod",))
+        gen = torch.Generator().manual_seed(rank)
+        x = torch.randn(6, 5, generator=gen)
+        out = {}
+        for where in ("cpu", "cuda:0"):
+            t = x.to(where)
+            out[where] = {
+                "all_gather": collectives.all_gather(t, mesh, ("pod",), 1),
+                "reduce_scatter": collectives.reduce_scatter(t, mesh,
+                                                             ("pod",), 0),
+                "all_reduce": collectives.all_reduce(t, mesh, ("pod",)),
+                "broadcast": collectives.broadcast(t, mesh, ("pod",), 1),
+                "send_recv": collectives.shift(t, mesh, "pod")}
+            out[where] = {k: v.cpu() for k, v in out[where].items()}
+        out["probe"] = collectives.gloo_takes_cuda()
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+    finally:
+        multihost.shutdown()
+
+
+def test_staged_collectives_equal_host_results(cuda_device, tmp_path):
+    """Each collective on CUDA tensors — gloo's own where it takes them,
+    staged through pinned host buffers where it refuses — equals the
+    same collective on the CPU bit for bit, on both ranks."""
+    from repro_torch.distributed import collectives, multihost
+    multihost.spawn(_collectives_rank, 2, (str(tmp_path / "store"),
+                                           str(tmp_path)), 300.0)
+    for rank in range(2):
+        got = torch.load(tmp_path / f"rank{rank}.pt")
+        assert set(got["probe"]) == set(collectives.OPS)
+        for op, want in got["cpu"].items():
+            assert torch.equal(got["cuda:0"][op], want), (rank, op)

@@ -2,7 +2,8 @@
 .multihost``), on the CPU.
 
 In-process tests pin ``initialize``'s one-process no-op, a rendezvous
-that fails raising, and ``spans_processes``. The spawned test is the
+that fails raising, ``spans_processes`` and ``spawn`` ending a world
+whose rank failed. The spawned test is the
 twin of ``tests/test_multihost.py``'s acceptance check: two processes,
 joined over gloo through a file store in ``tmp_path``, each adding two
 CPU slots, run a plain ``queueing.run`` with no ``mesh=`` — the default
@@ -11,7 +12,7 @@ must equal one process's unsharded run bit for bit (``torch.equal``),
 with each process having drawn only the seed rows its own slots gather.
 The file imports no JAX: the spawned processes import it.
 """
-import multiprocessing
+
 import time
 
 import pytest
@@ -60,6 +61,23 @@ def _worker(rank: int, store: str, out_dir: str) -> None:
         multihost.shutdown()
 
 
+def _stuck_unless_rank_1(rank: int) -> None:
+    """Rank 1 raises; the others wait, as ranks blocked on it in a
+    collective would."""
+    if rank == 1:
+        raise RuntimeError("rank 1 fails")
+    time.sleep(120.0)
+
+
+def test_spawn_kills_the_world_when_a_rank_fails():
+    """``multihost.spawn`` raises as soon as one rank exits nonzero and
+    kills the ranks still waiting, well before its deadline."""
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="exited with"):
+        multihost.spawn(_stuck_unless_rank_1, 3, (), 100.0)
+    assert time.monotonic() - t0 < 60.0
+
+
 def test_initialize_is_a_no_op_for_one_process():
     assert multihost.initialize() is False
     assert multihost.initialize("localhost:1234", 1, 0) is False
@@ -93,23 +111,8 @@ def test_spans_processes():
 
 @pytest.mark.slow
 def test_two_processes_two_slots_equal_one_process_unsharded(tmp_path):
-    ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_worker,
-                         args=(r, str(tmp_path / "store"), str(tmp_path)))
-             for r in range(2)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + WALL_LIMIT_S
-    try:
-        for p in procs:
-            p.join(timeout=max(deadline - time.monotonic(), 1.0))
-        assert not any(p.is_alive() for p in procs), "a worker hung"
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join(timeout=10.0)
-    assert [p.exitcode for p in procs] == [0, 0]
+    multihost.spawn(_worker, 2, (str(tmp_path / "store"), str(tmp_path)),
+                    WALL_LIMIT_S)
 
     for rank in range(2):
         got = torch.load(tmp_path / f"rank{rank}.pt")

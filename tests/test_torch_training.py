@@ -630,3 +630,32 @@ def test_chip_smoke_phase17_runs_on_the_cpu(monkeypatch, capsys):
     text = capsys.readouterr().out
     assert "crashed as injected: injected failure at step 30" in text
     assert "[17] phase 17:" in text
+
+
+def test_chip_smoke_phase18_runs_on_the_cpu(monkeypatch, capsys):
+    """``chip_smoke.py``'s phase 18 (``model_parallel``: the unsharded
+    reference and its float32 copy, four spawned ranks, every gate) end
+    to end on the CPU at granite's smoke config and small shapes, the
+    kernels' plain versions standing in for the kernels (no launch
+    expected)."""
+    import os
+    from pathlib import Path
+
+    root = os.path.join(os.path.dirname(__file__), os.pardir)
+    monkeypatch.syspath_prepend(root)   # the spawned ranks import it too
+    import chip_smoke as cs
+
+    monkeypatch.setattr(cs, "MP_SMOKE", True)
+    monkeypatch.setattr(cs, "MP_SEQ", 16)
+    monkeypatch.setattr(cs, "MP_PIPE", (2, 4, 3, 8))
+    monkeypatch.setattr(cs, "MP_HIER_SHAPE", (6, 10))
+    # the grad norm's bf16 noise at the smoke widths: the unsharded run
+    # reads 1.0e-3 from its float32 copy at step 2, the sharded run
+    # 1.39e-3 from the unsharded one (the card's gate, MP_NORM_RTOL, is
+    # set from full width's readings)
+    monkeypatch.setattr(cs, "MP_NORM_RTOL", 2e-3)
+    out = cs.model_parallel(torch.device("cpu"),
+                            Path(root).resolve() / "src")
+    assert len(out["ranks"]) == 4 and out["eval_launches"] == 0
+    text = capsys.readouterr().out
+    assert "[18] phase 18:" in text and "gate failed" not in text

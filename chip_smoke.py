@@ -6,7 +6,8 @@
     python3 chip_smoke.py --gates 16   # phase 16 alone (the seven models)
     python3 chip_smoke.py --gates 17   # phase 17 alone (training)
     python3 chip_smoke.py --gates 18   # phase 18 alone (model parallel)
-    python3 chip_smoke.py --faults     # --gates on planted faults F9-F18
+    python3 chip_smoke.py --gates 19   # phase 19 alone (sharded serving)
+    python3 chip_smoke.py --faults     # --gates on planted faults F9-F20
     python3 chip_smoke.py --faults F12 F13 F14   # only those (+ control)
 
 Phases, each printing its own lines; any failure raises and exits
@@ -69,7 +70,14 @@ nonzero:
      query scales 1 and 8), under the same gates, and both timed at
      command-r-35b's layer (S = 2048, a dense cache of 2056 slots) beside
      their plain versions, the bound and masked SDPA (no softcap: the same
-     function);
+     function). Then sharded serving's calls, gated and timed beside the
+     whole call: ``flash_attention`` on rows 2,304-4,607 of gemma2-2b's
+     4,608 at ``q_offset`` 2,304 over their causal prefix, global and
+     windowed (also against the whole call's rows, bit for bit), and
+     ``decode_attention`` with ``return_lse`` (its float32 output and
+     log-sum-exp, the latter within 2^-6 of max(1, |lse|)) on the dense
+     cache of 4,624 slots, one rank's block of 1,156, a block with no
+     live slot (0 and -inf) and the wrapped ring;
   7. gemma2-2b at full width and depth (26 layers, random weights from the
      port's own init on the card): a 4608-token prompt, longer than the
      window, then 16 teacher-forced decode steps. Once with every
@@ -136,7 +144,8 @@ nonzero:
      ``examples/serve_hedged`` drives it: ``threshold.policy_table`` with
      serving_hedge's full-size arguments (``cell_update`` launches read
      around exactly that call), then ``BatchedHedgedService`` over 4
-     replicas of gemma2-2b (26 layers, one shared model) replaying 32
+     replicas of gemma2-2b (full width, cut to ``SERVE_STACK_DEPTH`` = 6
+     layers for the script's budget; one shared model) replaying 32
      Poisson requests through ``replay_live`` with an
      ``AdaptiveController`` on that table, and 32 more at static k=2
      with replica r0 crashed a third of the way in: every request
@@ -222,7 +231,27 @@ nonzero:
      by rank 0 and restored through ``elastic.reshard_state`` onto the
      (1, 2) mesh of ``plan_for(2, model_degree=2)`` and onto one device,
      bit-equal; (d) ``hierarchical_grad_reduce`` on (pod 2, data 2) and a
-     2-stage ``pipeline_apply`` on the card at the JAX tests' tolerances.
+     2-stage ``pipeline_apply`` on the card at the JAX tests' tolerances;
+ 19. sharded serving (``repro_torch.models.decode`` under a ``ShardCtx``):
+     four ranks on cuda:0 as phase 18's (data 2, model 2) mesh serve
+     gemma2-2b at full width and a depth of ``SERVE_MP_DEPTH``, weights
+     drawn shard by shard from seed 0 under the prefill layout's training
+     specs, then moved one parameter at a time to the decode layout's
+     inference blocks, read in place. (a) B = 2: a 4,608-token prompt
+     with the sequence over ``model`` (2,304 rows a rank, K and V gathered,
+     ``flash_attention`` at ``q_offset``), a cache of 4,624 slots, then 8
+     teacher-forced decode steps with the KV slots over ``model``
+     (``decode_attention`` with ``return_lse`` on each rank's block, the
+     ranks' partial softmaxes combined); (b) B = 1: 4 steps with the KV
+     slots over (data, model) on the cache of an unsharded 512-token
+     prefill, every live slot on rank 0. Every attention call of every
+     rank also run through its plain version (the row gate of phases 5-6,
+     output and log-sum-exp); the logits of the prefill and of every step
+     within twice the model's bf16 floor (phase 7's measure) of the same
+     model unsharded in this process with the kernels, on the same
+     weights (``lm.init`` from seed 0); both kernels launched on every
+     rank; prefill and decode-step times, collective bytes and
+     collectives a step, peak memory per rank.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. A kernel's ``launches`` there are those
@@ -235,13 +264,14 @@ of its main path's run (phase 4, 8, 10 or 12; the attention kernels'
 processes' included), ``training_eval_launches`` (the attention
 kernels, ``ssd_scan`` and ``rglru_scan``) phase 17's evaluation losses
 and ``flash_attention``'s ``sharded_eval_launches`` phase 18's (its four
-ranks');
+ranks'), the attention kernels' ``sharded_serve_launches`` phase 19's
+(its four ranks');
 ``hist_accum``,
 which no main path launches, reads 0 and gives its launches in phase 2 as
 ``check_launches``. Needs CUDA and the repository's
 ``src/`` beside this script (or ``--src``); imports nothing of JAX or of
 ``repro``. ``--gates`` records every gate of phases 2, 3, 5-7, 9, 11 and
-15, and of 16, 17 and 18 where they are named (the worst multiple of its
+15, and of 16-19 where they are named (the worst multiple of its
 allowance; a bit gate as 0 or inf; phase 15 runs its own unsharded
 references; phase 16 skips its serving) instead of
 stopping at the first that fails, and prints them as its last line;
@@ -690,6 +720,101 @@ def attention_kernels(dev, timed: bool = True,
             f"live slot {ms_empty} ms, torch.sum over the same K and V "
             f"{ms_read} ms; device ms per call by kernel (trace of 50 "
             f"calls) {json.dumps(per_call)}")
+    # --------------------------------------- 5, 6: sharded serving's calls
+    # flash_attention with q_offset: the second half of a 4608-token
+    # prompt (a rank's block of rows in a sequence-sharded prefill) over
+    # its causal prefix, global and windowed; decode_attention with
+    # return_lse: the dense cache of 4,624 slots whole, one rank's block
+    # of it (1,156 slots), a block with no live slot, and the wrapped
+    # ring; each timed beside the whole call
+    half, off_rec = PROMPT // 2, {}
+    for w in (None, window):
+        q, k, v = bf16(b, PROMPT, h, hd), bf16(b, PROMPT, kv, hd), \
+            bf16(b, PROMPT, kv, hd)
+        qh = q[:, half:].contiguous()
+
+        def offset_call(kernel, qh=qh, k=k, v=v, w=w):
+            return fa_ops.flash_attention(qh, k, v, window=w, softcap=cap,
+                                          q_offset=half, kernel=kernel)
+
+        got, want = offset_call("on"), offset_call("off")
+        shape = (f"H={h} KV={kv} rows {half}..{PROMPT - 1} of {PROMPT} "
+                 f"(q_offset={half}) window={w} softcap={cap}")
+        err = check_attention(f"flash_attention {shape}", got, want,
+                              absolute=True, gate="phase 5",
+                              raise_on_fail=raise_on_fail)
+        fa_err = max(fa_err, err)
+        whole = fa_ops.flash_attention(q, k, v, window=w, softcap=cap,
+                                       kernel="on")
+        log(f"[5] flash_attention {shape}: max abs err vs plain {err}, "
+            f"worst row at {row_err(got, want)[1]} of its allowance; equal "
+            f"to the whole call's rows bit for bit: "
+            f"{bool(torch.equal(got, whole[:, half:]))}")
+        if timed:
+            off_rec[w] = dict(
+                ms=cuda_ms(lambda: offset_call("on"), 10,
+                           "flash_attention q_offset"),
+                whole_ms=cuda_ms(lambda: fa_ops.flash_attention(
+                    q, k, v, window=w, softcap=cap, kernel="on"), 10,
+                    "flash_attention whole"))
+            log(f"[5] flash_attention {shape}: {off_rec[w]['ms']} ms "
+                f"against {off_rec[w]['whole_ms']} ms for the whole "
+                f"{PROMPT} rows")
+    length, pos = PROMPT + 16, PROMPT + 7
+    blk = length // 4
+    q, k, v = bf16(b, 1, h, hd), bf16(b, length, kv, hd), \
+        bf16(b, length, kv, hd)
+    s = torch.arange(length, device=dev, dtype=torch.int32)
+    dense = torch.where(s <= pos, s, -1)
+    ring_pos = 5000
+    ring_slots = torch.where(s[:window] <= ring_pos,
+                             ring_pos - (ring_pos - s[:window]) % window, -1)
+    lse_rec = {}
+    for case, kk, vv, slots, p_, w in (
+            ("whole", k, v, dense, pos, None),
+            ("a rank's block", k[:, blk:2 * blk], v[:, blk:2 * blk],
+             dense[blk:2 * blk].contiguous(), pos, None),
+            ("a block with no live slot", k[:, :blk], v[:, :blk],
+             torch.full((blk,), -1, device=dev, dtype=torch.int32), pos,
+             None),
+            ("ring", k[:, :window], v[:, :window], ring_slots, ring_pos,
+             window)):
+
+        def lse_call(kernel, kk=kk, vv=vv, slots=slots, p_=p_, w=w):
+            return da_ops.decode_attention(q, kk, vv, slots, p_, window=w,
+                                           softcap=cap, return_lse=True,
+                                           kernel=kernel)
+
+        got, want = lse_call("on"), lse_call("off")
+        err, ratio = attn_err(got, want)
+        lse_d, lse_ratio = lse_err(got[1], want[1])
+        record_gate("phase 6 row", ratio)
+        record_gate("phase 6 2e-2", err / ATTN_TOL)
+        record_gate("phase 6 lse", lse_ratio)
+        shape = (f"{case} H={h} KV={kv} L={kk.shape[1]} pos={p_} "
+                 f"window={w} softcap={cap}, return_lse")
+        if not (err <= ATTN_TOL and ratio <= 1.0):
+            msg = (f"decode_attention {shape} differs from its plain "
+                   f"version: max abs err {err}, worst row (output and "
+                   f"log-sum-exp) at {ratio} of its allowance")
+            if raise_on_fail:
+                raise AssertionError(msg)
+            log(f"    gate failed: {msg}")
+        da_err = max(da_err, err)
+        log(f"[6] decode_attention {shape}: max abs err vs plain {err} "
+            f"(output), {lse_d} (log-sum-exp, worst at {lse_ratio} of "
+            f"2^-6 of max(1, |lse|)); live slots "
+            f"{int(((slots >= 0) & (slots <= p_)).sum())}")
+        if timed and case in ("whole", "a rank's block"):
+            lse_rec[case] = dict(
+                ms=cuda_ms(lambda: lse_call("on"), 50,
+                           "decode_attention return_lse"),
+                whole_ms=cuda_ms(lambda: da_ops.decode_attention(
+                    q, k, v, dense, pos, softcap=cap, kernel="on"), 50,
+                    "decode_attention whole"))
+            log(f"[6] decode_attention {shape}: {lse_rec[case]['ms']} ms "
+                f"against {lse_rec[case]['whole_ms']} ms for the whole "
+                f"cache without the log-sum-exp")
     # ------------------------------------------------ 5, 6: the other models
     # the head shapes of phase 16's models, dense and causal, untimed but
     # command-r-35b's layer (S = 2048, a dense cache of 2056 slots)
@@ -773,9 +898,12 @@ def attention_kernels(dev, timed: bool = True,
                      ("decode_attention gemma2-2b ring", da[(h, "ring")])):
         log(f"[6] {key}: {json.dumps(rec)}")
     return {"flash_attention": dict(fa[(h, None)], max_abs_err=fa_err,
-                                    command_r_35b=cr_fa),
+                                    command_r_35b=cr_fa,
+                                    q_offset={str(w): r for w, r in
+                                              off_rec.items()}),
             "decode_attention": dict(da[(h, "dense")], max_abs_err=da_err,
-                                     command_r_35b=cr_da)}
+                                     command_r_35b=cr_da,
+                                     return_lse=lse_rec)}
 
 
 @contextlib.contextmanager
@@ -813,7 +941,7 @@ def _checked_ops() -> dict:
     from repro_torch.kernels.rglru_scan import ops as scan_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     return {"flash_attention": (fa_ops, "flash_attention", row_err),
-            "decode_attention": (da_ops, "decode_attention", row_err),
+            "decode_attention": (da_ops, "decode_attention", attn_err),
             "ssd_scan": (ssd_ops, "ssd_intra_chunk", ssd_err),
             "rglru_scan": (scan_ops, "linear_scan", scan_err)}
 
@@ -2308,6 +2436,10 @@ def paper_figures() -> int:
 # serve_hedged example drives it.
 SERVE_REPLICAS = 4
 SERVE_REQUESTS = 32  # each live replay: poisson_trace at rho 0.2
+# gemma2-2b's depth behind the service: cut from 26 layers to 3 x (local,
+# global) for the script's budget (the phase's time is the host-paced
+# decode of its 3 x 32 requests, linear in the depth; PERF.md §4)
+SERVE_STACK_DEPTH = 6
 
 
 def controller_us(table, mean_s: float, n: int = 20_000) -> float:
@@ -2329,8 +2461,9 @@ def serving_stack(dev) -> dict:
     full width. (a) ``threshold.policy_table`` with serving_hedge's full-
     size arguments, ``cell_update`` launches read around exactly that
     call; (b) ``BatchedHedgedService`` over 4 ``InferenceEngine`` replicas
-    of gemma2-2b (26 layers, random weights from the port's init, seed 0,
-    one shared model), an ``AdaptiveController`` on (a)'s table with the
+    of gemma2-2b (full width, SERVE_STACK_DEPTH layers, random weights from
+    the port's init, seed 0, one shared model), an ``AdaptiveController``
+    on (a)'s table with the
     mean service time of a warm request, ``Telemetry``, a Poisson trace
     of 32 requests (16-token prompts, 4 new tokens, rho 0.2) through
     ``replay_live``; (c) the same service at static k=2 over a second
@@ -2340,14 +2473,18 @@ def serving_stack(dev) -> dict:
     ``decode_attention`` launch in (b) and (c). (b) runs once more under
     ``torch.profiler`` for the device's idle share. Returns the phase's
     launches of the three kernels."""
+    import dataclasses
+
     import numpy as np
     import torch
 
     from repro_torch.bench import serving_hedge
+    from repro_torch.configs import get_config
     from repro_torch.examples import serve_hedged
     from repro_torch.kernels.cell_update import kernel as cell_kernel
     from repro_torch.kernels.decode_attention import kernel as da_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.models import lm
     from repro_torch.serving.controller import PolicyTable
     from repro_torch.serving.engine import InferenceEngine
 
@@ -2371,8 +2508,11 @@ def serving_stack(dev) -> dict:
         raise AssertionError("policy_table launched no cell_update")
 
     t0 = time.perf_counter()
-    cfg, model, engines = serve_hedged.make_replicas(
-        "gemma2-2b", False, SERVE_REPLICAS, dev)
+    cfg = dataclasses.replace(get_config("gemma2-2b"),
+                              n_layers=SERVE_STACK_DEPTH)
+    model = lm.init(torch.Generator(dev).manual_seed(0), cfg)
+    engines = [InferenceEngine(cfg, model, max_len=64, name=f"r{i}",
+                               device=dev) for i in range(SERVE_REPLICAS)]
     lone = InferenceEngine(cfg, model, max_len=64, name="lone", device=dev)
     mean_s = serve_hedged.mean_service_s(lone)
     log(f"[14] gemma2-2b ({cfg.n_layers} layers), {SERVE_REPLICAS} replicas "
@@ -3156,6 +3296,370 @@ def model_parallel(dev, src, raise_on_fail: bool = True) -> dict:
     return res
 
 
+SERVE_MP_ARCH = "gemma2-2b"
+SERVE_MP_DEPTH = 26              # an even depth: local and global layers
+SERVE_MP_MESH = (2, 2)           # (data, model)
+SERVE_MP_LEN = PROMPT + 16       # the dense cache: 4,624 slots
+SERVE_MP_STEPS = 8
+SERVE_MP_B1 = (512, 4)           # (b): the prompt and the decode steps
+SERVE_MP_SMOKE = False           # the smoke config (the CPU rehearsal)
+SERVE_MP_PROMPT = PROMPT
+SERVE_MP_LIMIT_S = 400.0
+SERVE_MP_SETTINGS = ("SERVE_MP_DEPTH", "SERVE_MP_LEN", "SERVE_MP_STEPS",
+                     "SERVE_MP_B1", "SERVE_MP_SMOKE", "SERVE_MP_PROMPT")
+
+
+def serve_mp_config():
+    """Phase 19's config: gemma2-2b at full width (or its smoke config),
+    SERVE_MP_DEPTH layers."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_smoke_config
+
+    cfg = (get_smoke_config if SERVE_MP_SMOKE else get_config)(SERVE_MP_ARCH)
+    return dataclasses.replace(cfg, n_layers=SERVE_MP_DEPTH)
+
+
+def _serve_tokens(cfg, batch: int, length: int):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(19 + batch)
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, length)))
+
+
+def lse_err(got, want) -> tuple[float, float]:
+    """(max abs error, worst ratio to ``ATTN_REL * max(1, |lse|)``) of a
+    log-sum-exp (B, H) against its plain version; -inf (no live slot)
+    must meet -inf."""
+    import torch
+
+    g, w = got.float(), want.float()
+    if not torch.equal(torch.isneginf(g), torch.isneginf(w)):
+        return math.inf, math.inf
+    live = ~torch.isneginf(w)
+    if not bool(live.any()):
+        return 0.0, 0.0
+    err = (g[live] - w[live]).abs()
+    allow = ATTN_REL * w[live].abs().clamp(min=1.0)
+    return float(err.max()), float((err / allow).max())
+
+
+def attn_err(got, want) -> tuple[float, float]:
+    """``row_err`` of an attention output; with a log-sum-exp beside it
+    (``return_lse``), the worse of the output's and ``lse_err``'s
+    ratios."""
+    if not isinstance(got, tuple):
+        return row_err(got, want)
+    err, ratio = row_err(got[0], want[0])
+    return err, max(ratio, lse_err(got[1], want[1])[1])
+
+
+def serve_reference(dev, cfg, tmp: Path) -> dict:
+    """Phase 19's unsharded runs in this process: ``lm.init`` from seed 0
+    (the weights ``ShardedModel.init`` draws shard by shard), (a) B = 2
+    over SERVE_MP_PROMPT tokens and SERVE_MP_STEPS steps, (b) B = 1 over
+    SERVE_MP_B1; each with the kernels, their plain versions and the
+    attention ops in float32 (the bf16 floor). (b)'s prefill cache with
+    the kernels is saved for the ranks' decode. Frees the model."""
+    import torch
+
+    from repro_torch.models import decode, lm
+
+    model = lm.init(torch.Generator(dev).manual_seed(0), cfg)
+    out = {}
+    for case, (b, prompt, steps) in (("a", (2, SERVE_MP_PROMPT,
+                                            SERVE_MP_STEPS)),
+                                     ("b", (1, *SERVE_MP_B1))):
+        toks = _serve_tokens(cfg, b, prompt + steps).to(dev)
+        runs, times = {}, {}
+        for mode in ("on", "off", "off32"):
+            kernel = "off" if mode.startswith("off") else "auto"
+            with (float32_attention() if mode == "off32"
+                  else contextlib.nullcontext()):
+                _sync(dev)
+                t0 = time.perf_counter()
+                logits, cache = decode.prefill(model, toks[:, :prompt],
+                                               SERVE_MP_LEN, kernel=kernel)
+                _sync(dev)
+                t_pre = time.perf_counter() - t0
+                if case == "b" and mode == "on":
+                    torch.save(cache, tmp / "b1_cache.pt")
+                lg = [logits]
+                t0 = time.perf_counter()
+                for i in range(steps):
+                    logits, cache = decode.decode_step(
+                        model, cache, toks[:, prompt + i:prompt + i + 1],
+                        prompt + i, kernel=kernel)
+                    lg.append(logits)
+                _sync(dev)
+            runs[mode] = torch.stack(lg).float().cpu()
+            times[mode] = {"prefill_ms": t_pre * 1e3,
+                           "decode_ms": (time.perf_counter() - t0) * 1e3
+                           / steps}
+            del cache
+        out[case] = {"runs": runs, "times": times}
+    del model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def serving_rank(rank: int, src: str, store: str, tmp: str, device: str,
+                 settings: dict) -> None:
+    """One rank of phase 19, spawned: the weights drawn shard by shard
+    under the prefill layout's training specs; (a) the sharded prefill of
+    B = 2 (the sequence over ``model``), the shards moved to the decode
+    layout's inference blocks, SERVE_MP_STEPS decode steps (KV over
+    ``model``); (b) SERVE_MP_B1's decode of B = 1 (KV over (data, model))
+    from the unsharded prefill's cache; every attention call also run
+    through its plain version. Saves what it measured."""
+    globals().update(settings)
+    sys.path.insert(0, src)
+    import torch
+
+    from repro_torch.distributed import collectives, multihost, sharding, tp
+    from repro_torch.distributed.ctx import batch_axes
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import decode
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cpu":  # four ranks share the host's cores
+        torch.set_num_threads(1)
+    multihost.initialize(f"file://{store}", 4, rank, device=device,
+                         set_default_mesh=False, timeout_s=300.0)
+    try:
+        cfg = serve_mp_config()
+        mesh = make_test_mesh(*SERVE_MP_MESH)
+        counters = model_counters()
+        kernel = "on" if dev.type == "cuda" else "off"
+        out: dict = {}
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+
+        def ctx_of(kind, b):
+            return sharding.make_ctx(cfg, mesh, sharding.make_layout(
+                cfg, kind, False, b))
+
+        def gathered(x, ctx):
+            return collectives.all_gather(x, mesh, batch_axes(ctx), 0)
+
+        def decode_run(dsm, cache, toks, prompt, steps, dctx, rec):
+            lg, per_step = [], []
+            for i in range(steps):
+                b0 = sum(collectives.BYTES.values())
+                c0 = sum(collectives.CALLS.values())
+                _sync(dev)
+                t0 = time.perf_counter()
+                logits, cache = decode.decode_step(
+                    dsm, cache, toks[:, prompt + i:prompt + i + 1],
+                    prompt + i, kernel=kernel, ctx=dctx)
+                _sync(dev)
+                per_step.append({
+                    "ms": (time.perf_counter() - t0) * 1e3,
+                    "bytes": sum(collectives.BYTES.values()) - b0,
+                    "calls": sum(collectives.CALLS.values()) - c0})
+                lg.append(gathered(logits, dctx).float().cpu())
+            rec["decode"], rec["steps"] = lg, per_step
+
+        pctx, dctx = ctx_of("prefill", 2), ctx_of("decode", 2)
+        _sync(dev)
+        t0 = time.perf_counter()
+        sm = sharding.ShardedModel.init(cfg, pctx, 0, dev)
+        _sync(dev)
+        out["init_s"] = time.perf_counter() - t0
+        # (a) B = 2: the sequence over model, then KV over model
+        a: dict = {}
+        worst: dict = {}
+        for fn in counters.values():
+            fn.launches = 0
+        toks = sharding.batch_rows({"t": _serve_tokens(
+            cfg, 2, SERVE_MP_PROMPT + SERVE_MP_STEPS)}, pctx)["t"].to(dev)
+        with checked_against_plain(worst):
+            b0 = sum(collectives.BYTES.values())
+            _sync(dev)
+            t0 = time.perf_counter()
+            logits, cache = decode.prefill(sm, toks[:, :SERVE_MP_PROMPT],
+                                           SERVE_MP_LEN, kernel=kernel,
+                                           ctx=pctx)
+            _sync(dev)
+            a["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+            a["prefill_bytes"] = sum(collectives.BYTES.values()) - b0
+            a["prefill"] = gathered(logits, pctx).float().cpu()
+            b0 = sum(collectives.BYTES.values())
+            t0 = time.perf_counter()
+            dsm = sm.reshard(dctx, inference=True)
+            _sync(dev)
+            a["reshard_s"] = time.perf_counter() - t0
+            a["reshard_bytes"] = sum(collectives.BYTES.values()) - b0
+            del sm
+            dtoks = sharding.batch_rows({"t": _serve_tokens(
+                cfg, 2, SERVE_MP_PROMPT + SERVE_MP_STEPS)},
+                dctx)["t"].to(dev)
+            decode_run(dsm, cache, dtoks, SERVE_MP_PROMPT, SERVE_MP_STEPS,
+                       dctx, a)
+        del cache
+        a["launches"] = {k: fn.launches for k, fn in counters.items()}
+        a["checked"] = worst
+        # (b) B = 1: KV over (data, model), from the unsharded prefill's
+        # cache; the inference rules' blocks do not depend on the batch
+        b: dict = {}
+        worst = {}
+        for fn in counters.values():
+            fn.launches = 0
+        dctx1 = ctx_of("decode", 1)
+        whole = torch.load(Path(tmp) / "b1_cache.pt", map_location=dev)
+        specs = sharding.cache_specs(cfg, mesh, sharding.make_layout(
+            cfg, "decode", False, 1), whole)
+        cache = sharding.cache_blocks(whole, specs, mesh)
+        del whole
+        prompt, steps = SERVE_MP_B1
+        with checked_against_plain(worst):
+            decode_run(dsm, cache, _serve_tokens(cfg, 1, prompt + steps).to(
+                dev), prompt, steps, dctx1, b)
+        b["launches"] = {k: fn.launches for k, fn in counters.items()}
+        b["checked"] = worst
+        blk = cache[1]["k"].shape[1]   # layer 1: a global layer
+        lo = tp.axes_index(mesh, dctx1.kv_seq) * blk
+        b["live_slots"] = int((cache[1]["pos"][lo:lo + blk] >= 0).sum())
+        out.update(a=a, b=b, gathered_at_use=sorted(dsm.gathered_at_use),
+                   bytes_by_op=dict(collectives.BYTES),
+                   calls_by_op=dict(collectives.CALLS),
+                   peak_gb=(torch.cuda.max_memory_allocated() / 1e9
+                            if dev.type == "cuda" else None))
+        torch.save(out, Path(tmp) / f"rank{rank}.pt")
+    finally:
+        multihost.shutdown()
+
+
+def sharded_serving(dev, src, raise_on_fail: bool = True) -> dict:
+    """Phase 19: the unsharded references (``serve_reference``), then four
+    ranks on ``dev`` (``serving_rank``, spawned, joined within
+    SERVE_MP_LIMIT_S) and the gates: every attention call of every rank
+    within the row gate of phases 5-6 against its plain version (output
+    and log-sum-exp); the sharded logits of the prefill and of each decode
+    step, (a) and (b), within twice the model's bf16 floor of the
+    unsharded logits with the kernels (phase 7's measure: the plain
+    path's distance from the float32 attention ops); both attention
+    kernels launched on every rank. Returns the four ranks' launches."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.distributed import multihost
+
+    t_phase = time.perf_counter()
+    cfg = serve_mp_config()
+    failed: list[str] = []
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = serve_reference(dev, cfg, Path(tmp))
+        t_ref = time.perf_counter() - t_phase
+        t0 = time.perf_counter()
+        try:
+            secs = multihost.spawn(
+                serving_rank, 4, (str(src), f"{tmp}/store", tmp,
+                                  "cuda:0" if dev.type == "cuda" else "cpu",
+                                  {k: globals()[k]
+                                   for k in SERVE_MP_SETTINGS}),
+                SERVE_MP_LIMIT_S)
+        except RuntimeError as exc:
+            record_gate("phase 19 ranks", math.inf)
+            failed.append(str(exc))
+            secs, ranks = time.perf_counter() - t0, []
+        else:
+            ranks = [torch.load(Path(tmp) / f"rank{r}.pt")
+                     for r in range(4)]
+    res: dict = {"spawn_s": secs, "launches": {}}
+    log(f"[19] {cfg.name} at depth {SERVE_MP_DEPTH}, unsharded in this "
+        f"process ({t_ref:.1f}s): {json.dumps({c: r['times'] for c, r in ref.items()})}")
+    want_launch = dev.type == "cuda"
+    for case in ("a", "b") if ranks else ():
+        runs = ref[case]["runs"]
+        floor = float((runs["off32"] - runs["off"]).abs().max())
+        bound_ = 2 * floor
+        got = torch.stack(([ranks[0][case]["prefill"]] if case == "a"
+                           else []) + ranks[0][case]["decode"])
+        want = runs["on"] if case == "a" else runs["on"][1:]
+        diffs = (got - want).abs().flatten(1).amax(dim=1).tolist()
+        record_gate(f"phase 19 ({case}) logits",
+                    max(diffs) / bound_ if bound_ else math.inf)
+        if not max(diffs) <= bound_:
+            failed.append(f"({case}) sharded logits differ from unsharded "
+                          f"by {max(diffs)} > {bound_}")
+        same = all(torch.equal(torch.stack(r[case]["decode"]),
+                               torch.stack(ranks[0][case]["decode"]))
+                   for r in ranks)
+        if not same:
+            failed.append(f"({case}) the ranks' logits differ")
+        checked = {}
+        for name in ("flash_attention", "decode_attention"):
+            if case == "b" and name == "flash_attention":
+                continue
+            per = [r[case]["checked"].get(name, (0, 0.0, 0.0))
+                   for r in ranks]
+            n = [c for c, _, _ in per]
+            ratio = max(x for _, _, x in per)
+            record_gate(f"phase 19 ({case}) per-call {name}",
+                        ratio if min(n) else math.inf)
+            checked[name] = {"calls": n, "max_abs_err": max(
+                e for _, e, _ in per), "worst_row": ratio}
+            if (want_launch and min(n) == 0) or not ratio <= 1.0:
+                failed.append(f"({case}) {name}: calls {n}, worst row at "
+                              f"{ratio} of its allowance")
+        launches = {k: [r[case]["launches"][k] for r in ranks]
+                    for k in ("flash_attention", "decode_attention")}
+        for k, n in launches.items():
+            res["launches"][k] = res["launches"].get(k, 0) + sum(n)
+            if want_launch and (case == "a" or k == "decode_attention") \
+                    and min(n) <= 0:
+                failed.append(f"({case}) {k} launched {n} times a rank")
+        steps = ranks[0][case]["steps"]
+        log(f"[19] ({case}) {'B=2, sequence then KV over model' if case == 'a' else 'B=1, KV over (data, model), from the unsharded prefill'}: "
+            f"max abs logit difference sharded vs unsharded (kernels) "
+            f"{json.dumps(diffs)}; bound 2 x {floor} = {bound_}; largest "
+            f"|logit| {float(want.abs().max())}; per-call checks "
+            f"{json.dumps(checked)}; launches per rank "
+            f"{json.dumps(launches)}; decode steps (rank 0: ms, collective "
+            f"bytes, collectives) {json.dumps(steps)}"
+            + (f"; prefill {ranks[0]['a']['prefill_ms']} ms "
+               f"({ranks[0]['a']['prefill_bytes']} collective bytes), "
+               f"moved to the inference blocks in "
+               f"{ranks[0]['a']['reshard_s']} s "
+               f"({ranks[0]['a']['reshard_bytes']} bytes)"
+               if case == "a" else
+               f"; live slots of the ranks' first global layer "
+               f"{[r['b']['live_slots'] for r in ranks]}"))
+    if ranks:
+        r0 = ranks[0]
+        if r0["gathered_at_use"]:
+            log(f"[19] weights gathered at their use in decode: "
+                f"{r0['gathered_at_use']}")
+        log(f"[19] peak memory per rank GB "
+            f"{json.dumps([r['peak_gb'] for r in ranks])}; sharded init s "
+            f"{json.dumps([r['init_s'] for r in ranks])}; collective bytes "
+            f"by op (rank 0, whole phase) {json.dumps(r0['bytes_by_op'])}, "
+            f"calls {json.dumps(r0['calls_by_op'])}")
+        res.update(ranks=[{k: r[k] for k in ("peak_gb", "init_s")}
+                          for r in ranks],
+                   decode_ms=[s["ms"] for s in r0["a"]["steps"]],
+                   prefill_ms=r0["a"]["prefill_ms"],
+                   reference=ref["a"]["times"])
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    log(f"[19] phase 19: {secs}s (budget 90 s; spawn to exit "
+        f"{res['spawn_s']}s)")
+    if failed:
+        if raise_on_fail:
+            raise AssertionError("phase 19: " + "; ".join(failed))
+        for f in failed:
+            log(f"    gate failed: {f}")
+    return res
+
+
 # Planted faults (``--faults``): each edits one kernel source of a copy of
 # the package, as (source, text found once, its replacement, what it does).
 FAULTS = {
@@ -3226,9 +3730,22 @@ FAULTS = {
             "const int n_tiles = (L + kTile - 1) / kTile;",
             "const int n_tiles = L / kTile;",
             "the ragged last time tile is dropped"),
+    # sharded serving's interfaces
+    "F19": ("flash_attention",
+            "          const int row = rows[(i >> 1) & 1];",
+            "          const int row = rows[(i >> 1) & 1] - q_off;",
+            "the mask reads each query's local row, not its global one "
+            "(q_offset ignored)"),
+    "F20": ("decode_attention",
+            "lsum == 0.f ? -INFINITY : M + logf(lsum);",
+            "lsum == 0.f ? 0.f : M;",
+            "the log-sum-exp is written as the scores' max (0 where no slot "
+            "is live)"),
 }
-# phases of --gates that hold each source's kernel
+# phases of --gates that hold each source's kernel (the attention
+# kernels': 5-7), and of the faults of one interface
 FAULT_PHASES = {"cell_update": [2, 3], "ssd_scan": [9], "rglru_scan": [11]}
+FAULT_PHASES_OF = {"F19": [5, 19], "F20": [6, 19]}
 GATE_PHASES = [2, 3, 5, 6, 7, 9, 11, 15]
 
 
@@ -3301,7 +3818,8 @@ def run_faults(names: list[str]) -> int:
     names = names or list(FAULTS)
 
     def phases(fault):
-        return FAULT_PHASES.get(FAULTS[fault][0], [5, 6, 7])
+        return FAULT_PHASES_OF.get(fault) or FAULT_PHASES.get(
+            FAULTS[fault][0], [5, 6, 7])
 
     build.build_all()
     results = {}
@@ -3321,7 +3839,7 @@ def run_faults(names: list[str]) -> int:
         lines = proc.stdout.strip().splitlines()
         for ln in lines[:-1]:
             if "gate failed" in ln or "build" in ln or ln.startswith(
-                    ("[7]", "[9]", "[11]")):
+                    ("[7]", "[9]", "[11]", "[19]")):
                 log(f"[faults] {name} | {ln.strip()[:400]}")
         try:
             gates = json.loads(lines[-1])["gates"]
@@ -3346,8 +3864,8 @@ def main(argv=None) -> int:
                                  "CUDA card (see the module's docstring).")
     ap.add_argument("--gates", nargs="*", type=int, metavar="PHASE",
                     help="run phase 1 and the gates of phases 2, 3, 5, 6, "
-                         "7, 9, 11 and 15 (or of the phases named, 16, "
-                         "17 and 18 among them), recording "
+                         "7, 9, 11 and 15 (or of the phases named, 16-19 "
+                         "among them), recording "
                          "every gate instead of stopping at the first that "
                          "fails; the last line is the gates' worst "
                          "multiples")
@@ -3460,6 +3978,8 @@ def main(argv=None) -> int:
             training(dev, raise_on_fail=False)
         if 18 in phases:
             model_parallel(dev, src, raise_on_fail=False)
+        if 19 in phases:
+            sharded_serving(dev, src, raise_on_fail=False)
         print(json.dumps({"gates": GATES}), flush=True)
         return 0
 
@@ -3784,6 +4304,9 @@ def main(argv=None) -> int:
 
     # --------------------------------------------------------------- 18
     parallel = model_parallel(dev, src)
+
+    # --------------------------------------------------------------- 19
+    served_mp = sharded_serving(dev, src)
     check_imports()
 
     # ----------------------------------------------------------- output
@@ -3827,6 +4350,7 @@ def main(argv=None) -> int:
                 for arch, e in trained["eval"].items()},
             **({"sharded_eval_launches": parallel["eval_launches"]}
                if name == "flash_attention" else {}),
+            "sharded_serve_launches": served_mp["launches"][name],
             **a})
     for name, line in (("ssd_scan", 62), ("rglru_scan", 46)):
         record["kernels"].append({

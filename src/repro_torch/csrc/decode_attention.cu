@@ -46,6 +46,12 @@
 // P stays float32 in the value product (the plain version rounds it to
 // bf16; the row gate of chip_smoke.py covers the difference).
 //
+// Partial results (a cache split over ranks, combined across them: a
+// KV-sequence-sharded decode): given out32 and lse, the launch writes the
+// output in float32 to out32 (not rounded to bf16) and each query head's
+// log-sum-exp of its masked, soft-capped, scaled scores, lse = m + log l,
+// to lse (B, H); where no slot is live the output is 0 and lse is -inf.
+//
 // What is left: at the main path's shapes the time after the last rows land
 // sets the kernel's time, not the bytes: the CUDA-core products, two
 // cluster barriers, the fence and atomic that publish a slice, and the
@@ -125,7 +131,8 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
 decode_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v,
                         const int* __restrict__ slot_pos,
-                        bf16* __restrict__ out, float* __restrict__ part_acc,
+                        bf16* __restrict__ out, float* __restrict__ out32,
+                        float* __restrict__ lse, float* __restrict__ part_acc,
                         float* __restrict__ part_ml, int* __restrict__ counters,
                         int L, int H, int KV, int hd, int pos, int window,
                         float softcap, float scale, int split) {
@@ -361,16 +368,24 @@ decode_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
     const float inv = lsum == 0.f ? 0.f : 1.f / lsum;
-    *reinterpret_cast<__nv_bfloat162*>(
-        out + (static_cast<size_t>(b) * H + kvh * G) * hd + 2 * u) =
-        __floats2bfloat162_rn(a.x * inv, a.y * inv);
+    const size_t o = (static_cast<size_t>(b) * H + kvh * G) * hd + 2 * u;
+    if (out32 != nullptr)
+      *reinterpret_cast<float2*>(out32 + o) = make_float2(a.x * inv,
+                                                          a.y * inv);
+    else
+      *reinterpret_cast<__nv_bfloat162*>(out + o) =
+          __floats2bfloat162_rn(a.x * inv, a.y * inv);
+    if (lse != nullptr && 2 * u % hd == 0)  // once per head
+      lse[static_cast<size_t>(b) * H + kvh * G + g] =
+          lsum == 0.f ? -INFINITY : M + logf(lsum);
   }
   if (threadIdx.x == 0) counters[bk * kCluster + rank] = 0;
 }
 
 template <int MaxG>
 int launch(const void* q, const void* k, const void* v, const void* slot_pos,
-           void* out, void* part_acc, void* part_ml, void* counters, int B,
+           void* out, void* out32, void* lse, void* part_acc, void* part_ml,
+           void* counters, int B,
            int L, int H, int KV, int hd, int pos, int window, float softcap,
            float scale, int split, int n_splits, cudaStream_t st) {
   const Layout lay(split, H / KV, hd);
@@ -383,7 +398,8 @@ int launch(const void* q, const void* k, const void* v, const void* slot_pos,
                                   lay.total, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const int*>(slot_pos),
-      static_cast<bf16*>(out), static_cast<float*>(part_acc),
+      static_cast<bf16*>(out), static_cast<float*>(out32),
+      static_cast<float*>(lse), static_cast<float*>(part_acc),
       static_cast<float*>(part_ml), static_cast<int*>(counters), L, H, KV, hd,
       pos, window, softcap, scale, split);
   return static_cast<int>(cudaGetLastError());
@@ -414,11 +430,13 @@ extern "C" int decode_attention_sm_count(int device) {
 // (B, KV, n_splits / 8, 8, G, 2); counters (B, KV, 8) int32, zero before the
 // first launch (each launch leaves them zero). window <= 0: no window;
 // softcap <= 0: no softcap. G = H / KV at most 16; hd a multiple of 16,
-// at most 256;
-// every pointer 16-byte aligned.
+// at most 256; every pointer 16-byte aligned. out32 and lse null: the output
+// in bf16 to out; else the float32 output (B, 1, H, hd) to out32 and the
+// log-sum-exp (B, H) to lse, out unused.
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, const void* slot_pos,
-    void* out, void* part_acc, void* part_ml, void* counters, int B, int L,
+    void* out, void* out32, void* lse, void* part_acc, void* part_ml,
+    void* counters, int B, int L,
     int H, int KV, int hd, int pos, int window, float softcap, float scale,
     int split, int n_splits, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -433,8 +451,9 @@ extern "C" int decode_attention_launch(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int G = H / KV;
 #define DECODE_LAUNCH(MAXG)                                                   \
-  launch<MAXG>(q, k, v, slot_pos, out, part_acc, part_ml, counters, B, L, H, \
-               KV, hd, pos, window, softcap, scale, split, n_splits, st)
+  launch<MAXG>(q, k, v, slot_pos, out, out32, lse, part_acc, part_ml,       \
+               counters, B, L, H, KV, hd, pos, window, softcap, scale, split, \
+               n_splits, st)
   if (G <= 2) return DECODE_LAUNCH(2);
   if (G <= 4) return DECODE_LAUNCH(4);
   if (G <= 8) return DECODE_LAUNCH(8);

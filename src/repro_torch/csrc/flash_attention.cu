@@ -5,11 +5,16 @@
 // (_attn_kernel / flash_attention_bhsd, pl.pallas_call at :109). The plain
 // PyTorch version is repro_torch/kernels/flash_attention/ref.py.
 //
-// Layout: q (B, S, H, hd), k/v (B, S, KV, hd), out (B, S, H, hd), all bf16
-// and contiguous: the model's own layout, read by TMA through 4-d tensor
-// maps (hd, heads, S, B), so no transpose is made. Query head h reads KV
-// head h / (H / KV) (GQA, as the TPU kernel's index map). hd is a template
-// parameter: 16, 32, 64, 128 or 256, all on this one design.
+// Layout: q (B, Sq, H, hd), k/v (B, Sk, KV, hd), out (B, Sq, H, hd), all
+// bf16 and contiguous: the model's own layout, read by TMA through 4-d
+// tensor maps (hd, heads, S, B), so no transpose is made. Query head h reads
+// KV head h / (H / KV) (GQA, as the TPU kernel's index map). hd is a
+// template parameter: 16, 32, 64, 128 or 256, all on this one design.
+// The queries are the rows at global positions q_off .. q_off + Sq - 1 and
+// the keys positions 0 .. Sk - 1 with Sk = q_off + Sq (a sequence-sharded
+// prefill: a rank's block of rows over the gathered causal prefix); the
+// causal mask, the window and the tile skipping and ordering below read the
+// global row. q_off = 0 with Sq = Sk is the whole sequence.
 //
 // Bound on this card: operations. The live (query, key) pairs cost 4 * hd
 // flops each (QK and PV), which at gemma2-2b's S = 4608, hd = 256 is 88
@@ -43,7 +48,7 @@
 //     blockIdx.y mapped in reverse, so the block scheduler, which walks
 //     blocks in order, hands out the longest rows before the short ones.
 // A row whose every key was masked has l = 0 and is written as 0. Rows past
-// S are zero-filled by TMA, computed, and never written; keys past S are
+// Sq are zero-filled by TMA, computed, and never written; keys past Sk are
 // zero-filled and masked: any S works.
 //
 // Precision: the FMA contraction that nvcc applies here is allowed (the
@@ -370,16 +375,19 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
-                       bf16* __restrict__ out, int S, int H, int KV,
-                       int n_tiles, int window, float softcap, float scale) {
+                       bf16* __restrict__ out, int Sq, int H, int KV,
+                       int n_tiles, int window, float softcap, float scale,
+                       int q_off) {
   using T = Tile<HD>;
   const int tile = n_tiles - 1 - static_cast<int>(blockIdx.y);  // heavy first
   const int h = blockIdx.x;
   const int b = blockIdx.z;
   const int kvh = h / (H / KV);
-  const int q0 = tile * kBM;
-  const int q_last = min(q0 + kBM, S) - 1;
-  const int kv_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int S = q_off + Sq;  // keys; queries are rows q_off .. S - 1
+  const int q0 = tile * kBM;  // the tile's first query, local (Q's map)
+  const int g0 = q_off + q0;  // its global row
+  const int q_last = q_off + min(q0 + kBM, Sq) - 1;
+  const int kv_lo = window > 0 ? max(0, g0 - window + 1) : 0;
   const int t_lo = kv_lo / kBN, t_hi = q_last / kBN;
 
   extern __shared__ unsigned char smem_raw[];
@@ -426,12 +434,12 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     }
   } else {
-    // ---- consumer warpgroup wg: query rows q0 + 64 wg + [0, 64) ----
+    // ---- consumer warpgroup wg: global rows g0 + 64 wg + [0, 64) ----
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
     const int tid = threadIdx.x % 128;
     const int lane = tid % 32;
     const int col = 2 * (lane % 4);  // accumulator column pair in 8
-    const int wg_first = q0 + 64 * wg;
+    const int wg_first = g0 + 64 * wg;
     const int wg_last = min(wg_first + 64, S) - 1;  // < wg_first: no row
     const int rows[2] = {wg_first + 16 * (tid / 32) + lane / 4,
                          wg_first + 16 * (tid / 32) + lane / 4 + 8};
@@ -563,7 +571,8 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (rows[r] >= S) continue;
-      bf16* orow = out + ((static_cast<size_t>(b) * S + rows[r]) * H + h) * HD;
+      const size_t row = static_cast<size_t>(b) * Sq + rows[r] - q_off;
+      bf16* orow = out + (row * H + h) * HD;
 #pragma unroll
       for (int j = 0; j < HD / 8; ++j)
         *reinterpret_cast<uint32_t*>(orow + 8 * j + col) =
@@ -595,17 +604,17 @@ CUresult make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, int H, int KV, int window, float softcap, float scale,
-           cudaStream_t stream) {
+           int Sq, int H, int KV, int window, float softcap, float scale,
+           int q_off, cudaStream_t stream) {
   using T = Tile<HD>;
   static_assert(T::kSmem <= kMaxSmem, "tiles exceed shared memory");
-  const int n_tiles = (S + kBM - 1) / kBM;
+  const int n_tiles = (Sq + kBM - 1) / kBM;
   if (n_tiles > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap mq, mk, mv;
-  if (make_map<HD>(&mq, q, B, S, H, kBM) != CUDA_SUCCESS ||
-      make_map<HD>(&mk, k, B, S, KV, kBN) != CUDA_SUCCESS ||
-      make_map<HD>(&mv, v, B, S, KV, kBN) != CUDA_SUCCESS)
+  if (make_map<HD>(&mq, q, B, Sq, H, kBM) != CUDA_SUCCESS ||
+      make_map<HD>(&mk, k, B, q_off + Sq, KV, kBN) != CUDA_SUCCESS ||
+      make_map<HD>(&mv, v, B, q_off + Sq, KV, kBN) != CUDA_SUCCESS)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -613,8 +622,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   if (err != cudaSuccess) return static_cast<int>(err);
   flash_attention_kernel<HD><<<dim3(H, n_tiles, B), kThreads, T::kSmem,
                                stream>>>(mq, mk, mv, static_cast<bf16*>(out),
-                                         S, H, KV, n_tiles, window, softcap,
-                                         scale);
+                                         Sq, H, KV, n_tiles, window,
+                                         softcap, scale, q_off);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -624,32 +633,34 @@ extern "C" const char* error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 
-// hd one of 16, 32, 64, 128, 256; window <= 0: no window; softcap <= 0: no
-// softcap. Every pointer 16-byte aligned.
+// q (B, Sq, H, hd) at global rows q_off .. q_off + Sq - 1, k/v (B, q_off +
+// Sq, KV, hd); hd one of 16, 32, 64, 128, 256; window <= 0: no window;
+// softcap <= 0: no softcap. Every pointer 16-byte aligned.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int B, int S,
+                                      const void* v, void* out, int B, int Sq,
                                       int H, int KV, int hd, int window,
-                                      float softcap, float scale, int device,
-                                      void* stream) {
+                                      float softcap, float scale, int q_off,
+                                      int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0)
+  if (B <= 0 || Sq <= 0 || q_off < 0 || H <= 0 || KV <= 0 || H % KV != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define FLASH_LAUNCH(HD)                                                    \
+  launch<HD>(q, k, v, out, B, Sq, H, KV, window, softcap, scale, q_off, st)
   switch (hd) {
     case 16:
-      return launch<16>(q, k, v, out, B, S, H, KV, window, softcap, scale, st);
+      return FLASH_LAUNCH(16);
     case 32:
-      return launch<32>(q, k, v, out, B, S, H, KV, window, softcap, scale, st);
+      return FLASH_LAUNCH(32);
     case 64:
-      return launch<64>(q, k, v, out, B, S, H, KV, window, softcap, scale, st);
+      return FLASH_LAUNCH(64);
     case 128:
-      return launch<128>(q, k, v, out, B, S, H, KV, window, softcap, scale,
-                         st);
+      return FLASH_LAUNCH(128);
     case 256:
-      return launch<256>(q, k, v, out, B, S, H, KV, window, softcap, scale,
-                         st);
+      return FLASH_LAUNCH(256);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef FLASH_LAUNCH
 }

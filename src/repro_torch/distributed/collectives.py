@@ -37,7 +37,8 @@ all-gather, and a sum over ranks transposes to a sum over ranks.
 ``BYTES`` counts, per collective, the bytes this rank sent over the
 group's links as a ring algorithm moves them: (n-1)/n of the gathered
 or scattered tensor, twice that for an all-reduce, the whole tensor for
-a send or a broadcast.
+a send or a broadcast; ``CALLS`` counts the collectives themselves (a
+group of one rank moves nothing and is not counted).
 """
 from __future__ import annotations
 
@@ -52,6 +53,7 @@ OPS = ("all_gather", "reduce_scatter", "all_reduce", "send_recv",
        "broadcast")
 
 BYTES: collections.Counter = collections.Counter()
+CALLS: collections.Counter = collections.Counter()
 
 # the tiled collectives under their current names (older releases have
 # only the ``*_tensor`` names, which newer ones deprecate)
@@ -217,6 +219,7 @@ def all_gather(x: torch.Tensor, mesh: DeviceMesh, axes,
     out = xt.new_empty((n * xt.shape[0], *xt.shape[1:]))
     _run("all_gather", lambda o, i: _ALL_GATHER(o, i, group=group), out, xt)
     BYTES["all_gather"] += (n - 1) * xt.numel() * xt.element_size()
+    CALLS["all_gather"] += 1
     out = out.view(n, *xt.shape)[order].reshape(out.shape)
     return out.movedim(0, dim)
 
@@ -243,6 +246,7 @@ def reduce_scatter(x: torch.Tensor, mesh: DeviceMesh, axes,
     _run("reduce_scatter", lambda o, i: _REDUCE_SCATTER(o, i, group=group),
          out, inp)
     BYTES["reduce_scatter"] += (n - 1) * out.numel() * out.element_size()
+    CALLS["reduce_scatter"] += 1
     return out.movedim(0, dim)
 
 
@@ -257,6 +261,7 @@ def all_reduce(x: torch.Tensor, mesh: DeviceMesh, axes,
     _run("all_reduce", lambda o: dist.all_reduce(o, op=op, group=group), out)
     BYTES["all_reduce"] += 2 * (n - 1) * out.numel() * out.element_size() \
         // n
+    CALLS["all_reduce"] += 1
     return out
 
 
@@ -271,6 +276,7 @@ def broadcast(x: torch.Tensor, mesh: DeviceMesh, axes,
     src = members[order[src_index]]
     _run("broadcast", lambda o: dist.broadcast(o, src=src, group=group), out)
     BYTES["broadcast"] += out.numel() * out.element_size()
+    CALLS["broadcast"] += 1
     return out
 
 
@@ -298,6 +304,7 @@ def shift(y: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:
     _run("send_recv", exchange, out, y.contiguous())
     if me + 1 < n:
         BYTES["send_recv"] += y.numel() * y.element_size()
+    CALLS["send_recv"] += 1
     return out
 
 

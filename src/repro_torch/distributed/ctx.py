@@ -13,11 +13,17 @@ expert-parallel MoE, ``repro_torch.models.lm._run_moe``). So
 ``constrain`` is the identity, as the JAX function is in meaning: there
 it is only a layout hint to XLA's partitioner.
 
-What the port runs under a ctx: the training layouts whose ``seq`` and
-``kv_seq`` are unset (the batch split over ``ctx.batch``, experts over
-``ctx.ep_axes``). A sequence-sharded prefill or a KV-sequence-sharded
-decode is ROADMAP queue 1 item 14f; ``check_supported`` raises for it, so
-the model never gives a silently wrong answer.
+What the port runs under a ctx: every layout of ``make_layout`` in
+serving — a prefill with the sequence split over ``ctx.seq`` (each rank
+runs its block of rows; attention gathers K and V over ``seq``) or the
+batch split, a decode with the KV cache's slots split over
+``ctx.kv_seq`` (each rank attends over its own slots and the ranks
+combine their partial softmaxes, ``repro_torch.distributed.tp``) — and
+the training layouts whose ``seq`` is unset (the batch over
+``ctx.batch``, experts over ``ctx.ep_axes``). Training under a
+sequence-sharded layout (the fsdp recipe's train layout with two pods)
+is ROADMAP queue 1 item 14g; ``check_train`` raises for it, so the loss
+never gives a silently wrong answer.
 """
 from __future__ import annotations
 
@@ -28,7 +34,8 @@ from torch.distributed.device_mesh import DeviceMesh
 
 AxisSpec = tuple[str, ...] | None  # mesh axes for one logical dim
 
-SHARDED_SERVING_ITEM = "ROADMAP queue 1 item 14f (sharded serving)"
+SEQ_TRAINING_ITEM = ("ROADMAP queue 1 item 14g (training under a "
+                     "sequence-sharded layout)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,22 +61,30 @@ def _norm(axes: AxisSpec) -> AxisSpec:
     return tuple(axes) or None
 
 
-def batch_axes(ctx: ShardCtx) -> tuple[str, ...]:
+def batch_axes(ctx: ShardCtx | None) -> tuple[str, ...]:
     """The mesh axes that split the batch, major to minor (``()``: the
-    batch is whole on every rank)."""
-    return _norm(ctx.batch) or ()
+    batch is whole on every rank, or no ctx)."""
+    return (_norm(ctx.batch) or ()) if ctx is not None else ()
 
 
-def check_supported(ctx: ShardCtx | None) -> None:
-    """Raise where the ctx shards the sequence or the KV sequence: the
-    port has no sequence-sharded attention yet."""
-    if ctx is None:
-        return
-    if _norm(ctx.seq) or _norm(ctx.kv_seq):
+def seq_axes(ctx: ShardCtx | None) -> tuple[str, ...]:
+    """The mesh axes that split the sequence, major to minor."""
+    return (_norm(ctx.seq) or ()) if ctx is not None else ()
+
+
+def kv_axes(ctx: ShardCtx | None) -> tuple[str, ...]:
+    """The mesh axes that split the KV cache's slots, major to minor."""
+    return (_norm(ctx.kv_seq) or ()) if ctx is not None else ()
+
+
+def check_train(ctx: ShardCtx | None) -> None:
+    """Raise where the ctx shards the sequence: the training loss runs
+    only batch-split layouts."""
+    if seq_axes(ctx):
         raise NotImplementedError(
-            f"a ShardCtx with seq={ctx.seq} kv_seq={ctx.kv_seq}: the port "
-            f"runs only batch-split layouts; sequence-sharded prefill and "
-            f"KV-sequence-sharded decode are {SHARDED_SERVING_ITEM}")
+            f"a ShardCtx with seq={ctx.seq} in training: the loss runs only "
+            f"batch-split layouts; training under a sequence-sharded layout "
+            f"is {SEQ_TRAINING_ITEM}")
 
 
 def constrain(x: Any, ctx: ShardCtx | None, *dims: AxisSpec) -> Any:

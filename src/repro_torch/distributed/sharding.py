@@ -460,6 +460,20 @@ def _divides(axes: tuple[str, ...] | None, sizes: Mapping[str, int],
     return dim % size == 0
 
 
+def kv_split_axes(kv: tuple[str, ...] | None,
+                  mesh: DeviceMesh | Mapping[str, int],
+                  length: int) -> tuple[str, ...] | None:
+    """The axes that split a KV cache of ``length`` slots under a layout
+    whose KV sequence is over ``kv``: ``kv`` where it divides the length,
+    else ``model`` where that does, else none (the cache whole)."""
+    sizes = mesh_sizes(mesh)
+    if _divides(kv, sizes, length):
+        return tuple(kv)
+    if kv and length % sizes["model"] == 0:
+        return ("model",)
+    return None
+
+
 def cache_spec(path: str, shape: tuple[int, ...], cfg: ModelConfig,
                mesh: DeviceMesh | Mapping[str, int], layout: Layout) -> Spec:
     sizes = mesh_sizes(mesh)
@@ -469,18 +483,9 @@ def cache_spec(path: str, shape: tuple[int, ...], cfg: ModelConfig,
     b_axes = layout.batch if _divides(layout.batch, sizes, base[0]) else None
     kv = layout.kv_seq
     leaf = path.rsplit("/", 1)[-1]
-    if leaf in ("k", "v"):
+    if leaf in ("k", "v", "c_kv", "k_rope"):
         spec[0] = b_axes
-        if _divides(kv, sizes, base[1]):
-            spec[1] = kv
-        elif kv and base[1] % sizes["model"] == 0:
-            spec[1] = ("model",)
-    elif leaf in ("c_kv", "k_rope"):
-        spec[0] = b_axes
-        if _divides(kv, sizes, base[1]):
-            spec[1] = kv
-        elif kv and base[1] % sizes["model"] == 0:
-            spec[1] = ("model",)
+        spec[1] = kv_split_axes(kv, sizes, base[1])
     elif leaf == "pos":
         pass  # replicated slot-position vectors
     elif leaf == "h" and len(base) == 4:   # ssd state (B, H, P, N)
@@ -538,6 +543,37 @@ def cache_specs(cfg: ModelConfig, mesh, layout: Layout,
 
     return [walk(layer, prefix, stacked) for (prefix, stacked), layer
             in zip(cache_layer_paths(cfg), cache)]
+
+
+def cache_blocks(cache: list[dict], specs: list[dict], mesh: DeviceMesh,
+                 row_axes: tuple[str, ...] = ()) -> list[dict]:
+    """This rank's block of every leaf of ``cache`` under ``specs``
+    (``cache_specs``), each its own contiguous tensor. ``row_axes``: the
+    cache holds this rank's rows over those axes (a prefill's batch
+    split), not all of them; a leaf whose spec splits the rows otherwise
+    is gathered over them first. The slot-position vectors are whole."""
+    def walk(tree: dict, spec: dict) -> dict:
+        out = {}
+        for leaf, t in tree.items():
+            if isinstance(t, dict):
+                out[leaf] = walk(t, spec[leaf])
+                continue
+            s = spec[leaf]
+            if leaf != "pos" and row_axes and _axes_of(s[0]) != row_axes:
+                t = collectives.all_gather(t, mesh, row_axes, 0)
+            elif leaf != "pos" and row_axes:
+                s = (None, *s[1:])
+            out[leaf] = local_shard(t, s, mesh).clone()
+        return out
+
+    return [walk(layer, spec) for layer, spec in zip(cache, specs)]
+
+
+def gather_cache(blocks: list[dict], specs: list[dict],
+                 mesh: DeviceMesh) -> list[dict]:
+    """The whole cache from every rank's ``cache_blocks``."""
+    return [gather_tree(layer, spec, mesh)
+            for layer, spec in zip(blocks, specs)]
 
 
 def batch_shardings(cfg: ModelConfig, mesh, layout: Layout,
@@ -690,6 +726,17 @@ class ShardedModel:
     placement as soon as backward has it (``_AtUse``), so no whole
     gradient outlives its block either; ``take_grads`` returns them.
 
+    Serving. Prefill runs on the training rules' shards, each part
+    gathered at its use as above (``repro_torch.models.decode.prefill``
+    takes the ``ShardedModel``). Decode reads every weight once a token,
+    so its model keeps the inference rules' blocks in place
+    (``in_place``; ``reshard(ctx, inference=True)`` moves the prefill
+    model's shards there one parameter at a time): ``use`` puts a
+    ``repro_torch.distributed.tp.Split`` of each block where the model
+    reads it and the model's products take it across the ranks, and
+    gathers whole only a split weight that nothing reads in place
+    (``tp.reads_in_place``; ``gathered_at_use`` names them).
+
     Gradients. Every rank's loss is its share of the global loss
     (``lm.loss_fn`` under a ctx), so a parameter's gradient is the sum
     over every rank of the mesh of its rank's gradient: a reduce-scatter
@@ -700,10 +747,13 @@ class ShardedModel:
     """
 
     def __init__(self, cfg: ModelConfig, ctx: ShardCtx, device,
-                 specs: dict[str, Spec] | None = None):
+                 specs: dict[str, Spec] | None = None,
+                 in_place: bool = False):
         from repro_torch.models import layers, lm
 
         self.cfg, self.ctx, self.device = cfg, ctx, torch.device(device)
+        self.in_place = in_place
+        self.gathered_at_use: set[str] = set()
         self.mesh = ctx.mesh
         # the whole model's shapes (the rules read them) and the model the
         # forward runs, both on the meta device
@@ -759,14 +809,32 @@ class ShardedModel:
     @classmethod
     def from_full(cls, cfg: ModelConfig, ctx: ShardCtx,
                   params: dict[str, torch.Tensor], device,
-                  specs: dict[str, Spec] | None = None) -> "ShardedModel":
+                  specs: dict[str, Spec] | None = None,
+                  in_place: bool = False) -> "ShardedModel":
         """Shards of whole parameters (``named_parameters`` of a model)."""
-        self = cls(cfg, ctx, device, specs)
+        self = cls(cfg, ctx, device, specs, in_place)
         for name, p in params.items():
             self.shards[name] = local_shard(
                 p.detach().to(self.device), self.specs[name],
                 self.mesh).clone()
         return self
+
+    def reshard(self, ctx: ShardCtx, *, inference: bool = False
+                ) -> "ShardedModel":
+        """The same weights under ``ctx``'s layout on the same mesh: the
+        rules' specs (``inference``: the decode rules, experts over
+        ``ctx.ep_axes``, read in place), moved one parameter at a time —
+        each gathered whole, its new block kept, the whole dropped — so
+        no rank holds the whole model."""
+        specs = port_param_specs(self.meta, self.cfg, inference=inference,
+                                 ep_axes=tuple(ctx.ep_axes))
+        new = ShardedModel(self.cfg, ctx, self.device, specs, inference)
+        for name, shard in self.shards.items():
+            full = gather_full(shard, self.specs[name], self.mesh)
+            new.shards[name] = local_shard(full, specs[name],
+                                           new.mesh).clone()
+            del full
+        return new
 
     def shardings(self) -> dict[str, NamedSharding]:
         return {n: NamedSharding(self.mesh, s) for n, s in self.specs.items()}
@@ -776,6 +844,24 @@ class ShardedModel:
         return opt_specs(self.cfg, opt_state, self.meta, self.specs)
 
     # -- the step -------------------------------------------------------
+
+    def placed(self, name: str):
+        """What an ``in_place`` model reads for ``name``: its block as a
+        ``tp.Split`` where the model reads it in place, the shard itself
+        where it is whole or an expert weight's block, else the weight
+        gathered whole (recorded in ``gathered_at_use``)."""
+        from repro_torch.distributed import tp
+
+        shard, spec = self.shards[name], self.specs[name]
+        dims = [d for d, e in enumerate(spec)
+                if _axes_of(e) and d not in self.keep.get(name, ())]
+        if not dims:
+            return shard
+        if len(dims) == 1 and tp.reads_in_place(name):
+            return tp.Split(shard, dims[0], _axes_of(spec[dims[0]]),
+                            self.mesh, self.meta.get_parameter(name).shape)
+        self.gathered_at_use.add(name)
+        return self.gather_one(name, shard)
 
     def gather_one(self, name: str, shard: torch.Tensor) -> torch.Tensor:
         """The parameter ``name`` whole (an expert weight: this rank's
@@ -803,15 +889,18 @@ class ShardedModel:
     @contextlib.contextmanager
     def use(self, parts):
         """``model``'s parameters of ``parts`` (``lm.init_parts``'s names)
-        gathered for the length of the ``with``; with grad enabled, their
-        gradients flow back to the shards (``_AtUse``). Every rank of the
-        mesh enters the same ``use``s in the same order."""
+        gathered for the length of the ``with`` (``in_place``: as
+        ``placed`` reads them); with grad enabled, their gradients flow
+        back to the shards (``_AtUse``). Every rank of the mesh enters the
+        same ``use``s in the same order."""
         names = [n for part in parts for n in self.parts.get(part, ())]
         grad = torch.is_grad_enabled()
         try:
             for name in names:
                 shard = self.shards[name]
-                if grad:
+                if self.in_place:
+                    full = self.placed(name)
+                elif grad:
                     shard.requires_grad_(True)
                     full = _AtUse.apply(shard, self, name)
                 else:

@@ -34,7 +34,7 @@ _COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
 def _lib() -> ctypes.CDLL:
     lib = build.load("decode_attention")
     lib.decode_attention_launch.restype = _I
-    lib.decode_attention_launch.argtypes = ([_VP] * 8 + [_I] * 7
+    lib.decode_attention_launch.argtypes = ([_VP] * 10 + [_I] * 7
                                             + [_F, _F, _I, _I, _I, _VP])
     for fn in (lib.decode_attention_cluster, lib.decode_attention_max_split):
         fn.restype = _I
@@ -87,12 +87,14 @@ def _counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           slot_pos: torch.Tensor, pos: int, *,
                           window: int | None = None,
-                          softcap: float | None = None) -> torch.Tensor:
+                          softcap: float | None = None,
+                          return_lse: bool = False):
     """Kernel twin of ``ref.decode_attention_ref``: q (B, 1, H, hd), k/v
     (B, L, KV, hd) contiguous bf16, slot_pos (L,) int32, on one CUDA
     device; ``H / KV`` at most 16 and ``hd`` a multiple of 16 up to 256.
-    Returns (B, 1, H, hd) bf16, computed on the current stream in one
-    launch."""
+    Returns (B, 1, H, hd) bf16 or, with ``return_lse``, the output in
+    float32 and the log-sum-exp (B, H) float32 (-inf where no slot is
+    live), computed on the current stream in one launch."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"decode_attention_cuda needs CUDA tensors, got "
@@ -118,14 +120,17 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"window must be >= 1, got {window}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be > 0, got {softcap}")
-    out = torch.empty_like(q)
+    f32 = torch.float32
+    out = torch.empty_like(q, dtype=f32 if return_lse else q.dtype)
+    lse = (torch.full((b, h), -torch.inf, dtype=f32, device=dev)
+           if return_lse else None)
     if q.numel() == 0 or length == 0:
-        return out.zero_()
+        out.zero_()
+        return (out, lse) if return_lse else out
     lib = _lib()
     g = h // kv
     split, n_splits = split_plan(length, b, kv, _sm_count(lib, dev.index or 0))
     n_clusters = n_splits // CLUSTER
-    f32 = torch.float32
     part_acc = torch.empty((b, kv, n_clusters, g * hd), dtype=f32, device=dev)
     part_ml = torch.empty((b, kv, n_clusters, CLUSTER, g, 2), dtype=f32,
                           device=dev)
@@ -133,13 +138,16 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     counters = _counters(dev, stream, b * kv * CLUSTER)
     status = lib.decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), slot_pos.data_ptr(),
-        out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+        None if return_lse else out.data_ptr(),
+        out.data_ptr() if return_lse else None,
+        lse.data_ptr() if return_lse else None,
+        part_acc.data_ptr(), part_ml.data_ptr(),
         counters.data_ptr(), b, length, h, kv, hd, int(pos), window or 0,
         softcap or 0.0, hd**-0.5, split, n_splits, dev.index or 0, stream)
     build.check(lib, status, "decode_attention kernel launch")
     with _COUNT_LOCK:
         decode_attention_cuda.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 decode_attention_cuda.launches = 0

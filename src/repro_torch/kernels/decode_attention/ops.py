@@ -19,10 +19,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      slot_pos: torch.Tensor, pos: int, *,
                      window: int | None = None,
                      softcap: float | None = None,
-                     kernel: str = "auto") -> torch.Tensor:
-    """q (B, 1, H, hd); k/v (B, L, KV, hd); slot_pos (L,) -> (B, 1, H, hd)."""
+                     return_lse: bool = False, kernel: str = "auto"):
+    """q (B, 1, H, hd); k/v (B, L, KV, hd); slot_pos (L,) -> (B, 1, H, hd)
+    (``return_lse``: the float32 output and the log-sum-exp (B, H))."""
     if dispatch.use_kernel(kernel, q, k, v, slot_pos):
         return da_kernel.decode_attention_cuda(q, k, v, slot_pos, pos,
-                                               window=window, softcap=softcap)
+                                               window=window, softcap=softcap,
+                                               return_lse=return_lse)
     return decode_attention_ref(q, k, v, slot_pos, pos, window=window,
-                                softcap=softcap)
+                                softcap=softcap, return_lse=return_lse)

@@ -13,6 +13,7 @@ import threading
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention.ref import check_offset
 
 HEAD_DIMS = (16, 32, 64, 128, 256)  # instances of the kernel's template
 
@@ -25,7 +26,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     lib.flash_attention_launch.restype = _I
     lib.flash_attention_launch.argtypes = ([_VP] * 4 + [_I] * 6
-                                           + [_F, _F, _I, _VP])
+                                           + [_F, _F, _I, _I, _VP])
     return lib
 
 
@@ -48,19 +49,22 @@ def check_tensor(name: str, x: torch.Tensor, shape, device) -> None:
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, window: int | None = None,
-                         softcap: float | None = None) -> torch.Tensor:
-    """Kernel twin of ``ref.flash_attention_ref``: q (B, S, H, hd), k/v
-    (B, S, KV, hd), contiguous bf16 on one CUDA device, ``hd`` one of
-    ``HEAD_DIMS`` and ``H`` a multiple of ``KV``. Returns (B, S, H, hd)
-    bf16, computed on the current stream."""
+                         softcap: float | None = None,
+                         q_offset: int = 0) -> torch.Tensor:
+    """Kernel twin of ``ref.flash_attention_ref``: q (B, Sq, H, hd) at
+    rows ``q_offset ..``, k/v (B, q_offset + Sq, KV, hd), contiguous bf16
+    on one CUDA device, ``hd`` one of ``HEAD_DIMS`` and ``H`` a multiple
+    of ``KV``. Returns (B, Sq, H, hd) bf16, computed on the current
+    stream."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {dev}")
     b, s, h, hd = q.shape
     kv = k.shape[2]
+    check_offset(s, k.shape[1], q_offset)
     check_tensor("q", q, (b, s, h, hd), dev)
-    check_tensor("k", k, (b, s, kv, hd), dev)
-    check_tensor("v", v, (b, s, kv, hd), dev)
+    check_tensor("k", k, (b, q_offset + s, kv, hd), dev)
+    check_tensor("v", v, (b, q_offset + s, kv, hd), dev)
     if h % kv != 0:
         raise ValueError(f"n_heads={h} is not a multiple of n_kv={kv}")
     if hd not in HEAD_DIMS:
@@ -76,8 +80,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     status = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h,
-        kv, hd, window or 0, softcap or 0.0, hd**-0.5, dev.index or 0,
-        stream)
+        kv, hd, window or 0, softcap or 0.0, hd**-0.5, int(q_offset),
+        dev.index or 0, stream)
     build.check(lib, status, "flash_attention kernel launch")
     with _COUNT_LOCK:
         flash_attention_cuda.launches += 1

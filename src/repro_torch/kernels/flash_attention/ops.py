@@ -18,9 +18,12 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: int | None = None, softcap: float | None = None,
-                    kernel: str = "auto") -> torch.Tensor:
-    """q (B, S, H, hd); k/v (B, S, KV, hd) -> (B, S, H, hd)."""
+                    q_offset: int = 0, kernel: str = "auto") -> torch.Tensor:
+    """q (B, Sq, H, hd) at rows ``q_offset ..``; k/v (B, q_offset + Sq,
+    KV, hd) -> (B, Sq, H, hd)."""
     if dispatch.use_kernel(kernel, q, k, v):
         return fa_kernel.flash_attention_cuda(q, k, v, window=window,
-                                              softcap=softcap)
-    return flash_attention_ref(q, k, v, window=window, softcap=softcap)
+                                              softcap=softcap,
+                                              q_offset=q_offset)
+    return flash_attention_ref(q, k, v, window=window, softcap=softcap,
+                               q_offset=q_offset)

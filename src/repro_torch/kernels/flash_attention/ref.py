@@ -8,24 +8,39 @@ import torch
 NEG_INF = -2.0e38
 
 
+def check_offset(sq: int, sk: int, q_offset: int) -> None:
+    """Raise unless ``sk`` keys are the causal prefix of ``sq`` queries
+    at ``q_offset``."""
+    if q_offset < 0 or sk != q_offset + sq:
+        raise ValueError(f"{sk} keys for {sq} queries at q_offset="
+                         f"{q_offset}: the keys must be the causal prefix, "
+                         f"q_offset + Sq = {q_offset + sq}")
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, window: int | None = None,
-                        softcap: float | None = None) -> torch.Tensor:
-    """q (B, S, H, hd); k/v (B, S, KV, hd) -> (B, S, H, hd).
+                        softcap: float | None = None,
+                        q_offset: int = 0) -> torch.Tensor:
+    """q (B, Sq, H, hd); k/v (B, Sk, KV, hd) -> (B, Sq, H, hd).
 
-    Scores in float32, scaled by ``hd**-0.5``, soft-capped, masked, then
-    a float32 softmax whose probabilities are rounded to ``v.dtype``
-    before the value product, as in the reference."""
+    The queries are the rows at positions ``q_offset .. q_offset + Sq -
+    1`` and the keys positions ``0 .. Sk - 1``, with ``Sk = q_offset +
+    Sq``: a block of rows of a sequence-sharded prefill over its causal
+    prefix (``q_offset=0``: the whole sequence). Scores in float32,
+    scaled by ``hd**-0.5``, soft-capped, masked, then a float32 softmax
+    whose probabilities are rounded to ``v.dtype`` before the value
+    product, as in the reference."""
     b, s, h, hd = q.shape
     kv = k.shape[2]
+    check_offset(s, k.shape[1], q_offset)
     g = h // kv
     qg = q.reshape(b, s, kv, g, hd)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg.to(torch.float32),
                           k.to(torch.float32)) * (hd ** -0.5)
     if softcap is not None:
         scores = softcap * torch.tanh(scores / softcap)
-    i = torch.arange(s, device=q.device)[:, None]
-    j = torch.arange(s, device=q.device)[None, :]
+    i = torch.arange(q_offset, q_offset + s, device=q.device)[:, None]
+    j = torch.arange(k.shape[1], device=q.device)[None, :]
     mask = j <= i
     if window is not None:
         mask &= j > i - window

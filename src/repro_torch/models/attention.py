@@ -13,12 +13,25 @@ masked by current position) or a ring-buffer cache (local layers: (B,
 window, KV, hd)), each with a slot-position vector. Unlike the JAX
 package, ``decode_attention`` writes the new token into the cache in
 place and returns the same cache dict.
+
+Under a ``ShardCtx`` (sharded serving): a prefill with the sequence
+split over ``ctx.seq`` keeps Q as this rank's block of rows and gathers
+K and V over ``seq`` (the JAX package's constraint, written out), and
+the kernel takes the rows at their global offset over the causal prefix
+up to the block's last row (``q_offset``). A decode whose cache slots
+are split over ``ctx.kv_seq`` (``sharding.kv_split_axes``) attends over
+this rank's slots (``return_lse``) and combines the ranks' partial
+softmaxes (``tp.softmax_combine``); only the rank holding the new
+token's slot writes it.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from repro_torch.distributed import collectives, tp
+from repro_torch.distributed.ctx import ShardCtx, seq_axes
+from repro_torch.distributed.sharding import kv_split_axes
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import layers
@@ -70,6 +83,8 @@ def _project_qkv(p: Attention, x: torch.Tensor, positions: torch.Tensor,
 
 def _out_proj(p: Attention, out: torch.Tensor) -> torch.Tensor:
     """(B, S, H, hd) x wo (H, hd, d) -> (B, S, d)."""
+    if isinstance(p.wo.w, tp.Split):
+        return tp.einsum("bshd,hdm->bsm", out, p.wo.w)
     b, s, h, hd = out.shape
     w = p.wo.w.to(out.dtype).reshape(h * hd, -1)
     return torch.matmul(out.reshape(b, s, h * hd), w)
@@ -79,13 +94,26 @@ def attention(p: Attention, x: torch.Tensor, positions: torch.Tensor, *,
               kind: str, window: int, rope_theta: float,
               attn_softcap: float | None = None,
               qk_norm: bool = False, eps: float = 1e-6,
-              kernel: str = "auto", return_kv: bool = False):
+              kernel: str = "auto", return_kv: bool = False,
+              ctx: ShardCtx | None = None):
     """Causal self-attention over a full sequence (prefill). Head counts
-    and width are read off the projections' shapes."""
+    and width are read off the projections' shapes. Under a ctx whose
+    ``seq`` splits the sequence, ``x`` is this rank's block of rows and
+    the K and V returned are the whole sequence's."""
     q, k, v = _project_qkv(p, x, positions, rope_theta, qk_norm, eps)
     w = window if kind == "local" else None
-    out = fa_ops.flash_attention(q, k, v, window=w, softcap=attn_softcap,
-                                 kernel=kernel)
+    axes, offset = seq_axes(ctx), 0
+    if axes:
+        k = collectives.all_gather(k, ctx.mesh, axes, 1)
+        v = collectives.all_gather(v, ctx.mesh, axes, 1)
+        offset = tp.axes_index(ctx.mesh, axes) * q.shape[1]
+        end = offset + q.shape[1]
+        out = fa_ops.flash_attention(
+            q, k[:, :end].contiguous(), v[:, :end].contiguous(), window=w,
+            softcap=attn_softcap, q_offset=offset, kernel=kernel)
+    else:
+        out = fa_ops.flash_attention(q, k, v, window=w,
+                                     softcap=attn_softcap, kernel=kernel)
     y = _out_proj(p, out)
     if return_kv:
         return y, (k, v)
@@ -117,26 +145,40 @@ def decode_attention(p: Attention, x: torch.Tensor,
                      window: int, rope_theta: float,
                      attn_softcap: float | None = None,
                      qk_norm: bool = False, eps: float = 1e-6,
-                     kernel: str = "auto"
+                     kernel: str = "auto", ctx: ShardCtx | None = None
                      ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """One decode step. x (B, 1, D); ``pos`` the current position. Writes
-    the new key and value into ``cache`` in place and returns it."""
+    the new key and value into ``cache`` in place and returns it. Under a
+    ctx, ``cache["k"]``/``["v"]`` may be this rank's block of the slots
+    (``cache["pos"]`` is always whole)."""
     b = x.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _project_qkv(p, x, positions, rope_theta, qk_norm, eps)
 
-    length = cache["k"].shape[1]
+    length = cache["pos"].shape[0]
     if kind != "local" and pos >= length:
         raise ValueError(f"position {pos} is past the dense cache's "
                          f"max_len={length}")
     # the modulo is the identity on a dense cache; ring buffers (local
     # layers) wrap.
     slot = pos % length
-    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+    block = cache["k"].shape[1]
+    axes, lo = (), 0
+    if block != length:
+        axes = kv_split_axes(ctx.kv_seq, ctx.mesh, length)
+        lo = tp.axes_index(ctx.mesh, axes) * block
+    if lo <= slot < lo + block:  # this rank holds the new token's slot
+        cache["k"][:, slot - lo] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot - lo] = v_new[:, 0].to(cache["v"].dtype)
     cache["pos"][slot] = pos
-    out = da_ops.decode_attention(
-        q, cache["k"], cache["v"], cache["pos"], pos,
-        window=window if kind == "local" else None, softcap=attn_softcap,
-        kernel=kernel)
+    w = window if kind == "local" else None
+    if not axes:
+        out = da_ops.decode_attention(
+            q, cache["k"], cache["v"], cache["pos"], pos, window=w,
+            softcap=attn_softcap, kernel=kernel)
+        return _out_proj(p, out), cache
+    out, lse = da_ops.decode_attention(
+        q, cache["k"], cache["v"], cache["pos"][lo:lo + block], pos,
+        window=w, softcap=attn_softcap, return_lse=True, kernel=kernel)
+    out = tp.softmax_combine(out, lse, ctx.mesh, axes, q.dtype)
     return _out_proj(p, out), cache

@@ -21,6 +21,20 @@ takes precomputed patch embeddings ``patches`` (B, P, E) in prefill,
 projected and placed before the text, so the text's first decode
 position is P + S.
 
+Sharded serving (``ctx=``, ROADMAP queue 1 item 14f) under the layouts
+of ``repro_torch.distributed.sharding.make_layout``. ``prefill`` takes
+this rank's rows of the batch (``ctx.batch``), runs its block of the
+embedded sequence (``ctx.seq``: patches and text together) on a
+``ShardedModel`` whose parts are gathered at their use (the training
+rules, as the JAX package's prefill reads them), and returns the last
+position's logits of its rows on every rank and its block of the cache
+under the DECODE layout of the same batch. ``decode_step`` takes that
+block and this rank's rows on a ``ShardedModel`` in the inference rules'
+blocks read in place (``ShardedModel.reshard(ctx, inference=True)``):
+attention over a KV cache split over ``ctx.kv_seq`` combines the ranks'
+partial softmaxes; recurrent states are gathered whole for the step.
+With ``ctx=None`` both are the one-device path.
+
 ``kernel=`` (``repro_torch.kernels.dispatch``) picks the kernels' path:
 under ``"auto"`` a CUDA model runs prefill through the ``flash_attention``,
 ``ssd_scan`` and ``rglru_scan`` kernels and decode through the
@@ -34,11 +48,28 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives, sharding, tp
+from repro_torch.distributed.ctx import ShardCtx, batch_axes, seq_axes
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, lm, mla, rglru, ssd
 from repro_torch.models.layers import rmsnorm
 
 Cache = list[dict]
+
+# the parts of a model that serving reads outside the block stack
+SERVE_PARTS = ("embed", "patch_proj", "final_norm", "lm_head")
+
+
+def _serving(model) -> tuple[lm.LM, object]:
+    """(the ``LM`` the stack runs, its ``use`` or None): a
+    ``ShardedModel`` gives its placeholder model and its ``use``."""
+    if isinstance(model, sharding.ShardedModel):
+        return model.model, model.use
+    return model, None
+
+
+def _batch_shards(ctx: ShardCtx | None) -> int:
+    return tp.axes_size(ctx.mesh, batch_axes(ctx)) if ctx is not None else 1
 
 
 # ---------------------------------------------------------------------------
@@ -73,22 +104,26 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def block_decode(p: lm.Block, cache: dict,
                  x: torch.Tensor, cfg: ModelConfig, pos: int,
-                 kernel: str) -> tuple[torch.Tensor, dict]:
+                 kernel: str, ctx: ShardCtx | None = None
+                 ) -> tuple[torch.Tensor, dict]:
     h = rmsnorm(p.pre_norm, x, cfg.norm_eps)
     if p.kind == "rec":
-        h, cache = rglru.rglru_decode(p.mixer, h, cache, cfg.rglru)
+        h, cache = rglru.rglru_decode(p.mixer, h, cache, cfg.rglru, ctx)
     elif p.kind == "ssd":
-        h, cache = ssd.ssd_decode(p.mixer, h, cache, cfg.ssm)
+        h, cache = ssd.ssd_decode(p.mixer, h, cache, cfg.ssm, ctx)
     elif p.kind == "mla":
         h, cache = mla.mla_decode(p.mixer, h, cache, pos, cfg=cfg.mla,
                                   rope_theta=cfg.rope_theta,
-                                  eps=cfg.norm_eps)
+                                  eps=cfg.norm_eps, ctx=ctx)
     else:
-        h, cache = attn.decode_attention(p.mixer, h, cache, pos,
+        h, cache = attn.decode_attention(p.mixer, h, cache, pos, ctx=ctx,
                                          **lm._attn_kw(cfg, p.kind, kernel))
     if cfg.post_norm:
         h = rmsnorm(p.post_mixer_norm, h, cfg.norm_eps)
-    return lm._mlp_residual(p, x + h, cfg, capacity=x.shape[0])[0], cache
+    # the capacity is the global batch: no decode token is dropped
+    return lm._mlp_residual(p, x + h, cfg,
+                            capacity=x.shape[0] * _batch_shards(ctx),
+                            ctx=ctx)[0], cache
 
 
 def _logits(model: lm.LM, x_last: torch.Tensor) -> torch.Tensor:
@@ -107,18 +142,24 @@ def _logits(model: lm.LM, x_last: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def decode_step(model: lm.LM, cache: Cache, tokens: torch.Tensor, pos: int,
-                *, kernel: str = "auto") -> tuple[torch.Tensor, Cache]:
+def decode_step(model, cache: Cache, tokens: torch.Tensor, pos: int,
+                *, kernel: str = "auto", ctx: ShardCtx | None = None
+                ) -> tuple[torch.Tensor, Cache]:
     """One token for every sequence in the batch.
 
     tokens: (B, 1) int (audio: (B, 1, K)); pos: the tokens' position.
     Returns (logits (B, V) float32 — audio (B, K, V) —, the cache,
-    updated in place)."""
+    updated in place). Under a ctx (module docstring) ``model`` is an
+    ``LM`` or a ``ShardedModel``, ``tokens`` and ``cache`` this rank's
+    rows and blocks; the logits are those of its rows."""
+    model, use = _serving(model)
     cfg = model.cfg
-    x = lm.embed(model, tokens)
-    for p, c in zip(model.blocks, cache):
-        x, _ = block_decode(p, c, x, cfg, pos, kernel)
-    return _logits(model, x[:, 0]), cache
+    with lm._using(use, SERVE_PARTS):
+        x = lm.embed(model, tokens)
+        for i, (p, c) in enumerate(zip(model.blocks, cache)):
+            with lm._using(use, [f"blocks.{i}"]):
+                x, _ = block_decode(p, c, x, cfg, pos, kernel, ctx)
+        return _logits(model, x[:, 0]), cache
 
 
 # ---------------------------------------------------------------------------
@@ -147,8 +188,14 @@ def _attn_cache_from_kv(k: torch.Tensor, v: torch.Tensor, mixer: str,
 
 def block_prefill(p: lm.Block, x: torch.Tensor, cfg: ModelConfig,
                   positions: torch.Tensor, max_len: int,
-                  kernel: str) -> tuple[torch.Tensor, dict]:
+                  kernel: str, ctx: ShardCtx | None = None
+                  ) -> tuple[torch.Tensor, dict]:
     h = rmsnorm(p.pre_norm, x, cfg.norm_eps)
+    if seq_axes(ctx) and p.kind not in ("global", "local"):
+        # no layout of make_layout splits the sequence of these (their
+        # archs serve under the tp recipe, whose prefill splits the batch)
+        raise NotImplementedError(f"a sequence-sharded prefill of a "
+                                  f"{p.kind!r} layer")
     if p.kind == "rec":
         h, cache = rglru.rglru_block(p.mixer, h, cfg.rglru, kernel=kernel,
                                      return_state=True)
@@ -162,30 +209,75 @@ def block_prefill(p: lm.Block, x: torch.Tensor, cfg: ModelConfig,
         cache = mla.mla_cache_from_latents(c_kv, k_rope, max_len)
     else:
         h, (k, v) = attn.attention(p.mixer, h, positions, return_kv=True,
+                                   ctx=ctx,
                                    **lm._attn_kw(cfg, p.kind, kernel))
         cache = _attn_cache_from_kv(k, v, p.kind, cfg.window, max_len)
     if cfg.post_norm:
         h = rmsnorm(p.post_mixer_norm, h, cfg.norm_eps)
-    return lm._mlp_residual(p, x + h, cfg)[0], cache
+    return lm._mlp_residual(p, x + h, cfg, ctx=ctx)[0], cache
 
 
 @torch.no_grad()
-def prefill(model: lm.LM, tokens: torch.Tensor, max_len: int, *,
+def prefill(model, tokens: torch.Tensor, max_len: int, *,
             patches: torch.Tensor | None = None,
-            kernel: str = "auto") -> tuple[torch.Tensor, Cache]:
+            kernel: str = "auto", ctx: ShardCtx | None = None
+            ) -> tuple[torch.Tensor, Cache]:
     """Run the prompt ``tokens`` (B, S) — audio (B, S, K) — and, for a VLM,
     its ``patches`` (B, P, E) before it; build the cache. Returns
-    (last-position logits (B, V) float32 — audio (B, K, V) —, cache)."""
+    (last-position logits (B, V) float32 — audio (B, K, V) —, cache).
+    Under a ctx (module docstring) ``model`` is an ``LM`` or a
+    ``ShardedModel``, ``tokens`` and ``patches`` this rank's rows of the
+    whole prompt; the cache is this rank's block under the decode layout
+    (``decode_cache``)."""
+    model, use = _serving(model)
     cfg = model.cfg
     if cfg.patch_stub is not None and patches is None:
         raise ValueError(f"{cfg.name} takes patch embeddings (patches=) "
                          f"before the text")
-    x = lm.embed(model, tokens, patches)
-    b, s = x.shape[:2]
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=x.device).expand(b, s)
-    cache = []
-    for p in model.blocks:
-        x, c = block_prefill(p, x, cfg, positions, max_len, kernel)
-        cache.append(c)
-    return _logits(model, x[:, -1]), cache
+    with lm._using(use, SERVE_PARTS):
+        x = lm.embed(model, tokens, patches)
+        b, s = x.shape[:2]
+        start, axes = 0, seq_axes(ctx)
+        if axes:  # this rank's block of the (patches + text) sequence
+            n = tp.axes_size(ctx.mesh, axes)
+            if s % n:
+                raise ValueError(f"a sequence of {s} positions does not "
+                                 f"split over the {n} ranks of {axes}")
+            s //= n
+            start = tp.axes_index(ctx.mesh, axes) * s
+            x = x[:, start:start + s].contiguous()
+        positions = torch.arange(start, start + s, dtype=torch.int32,
+                                 device=x.device).expand(b, s)
+        cache = []
+        for i, p in enumerate(model.blocks):
+            with lm._using(use, [f"blocks.{i}"]):
+                x, c = block_prefill(p, x, cfg, positions, max_len, kernel,
+                                     ctx)
+            cache.append(c)
+        x_last = x[:, -1]
+        if axes:  # the last position is the last rank's
+            x_last = collectives.broadcast(x_last, ctx.mesh, axes, n - 1)
+        logits = _logits(model, x_last)
+    if ctx is not None:
+        cache = decode_cache(cfg, ctx, cache, b * _batch_shards(ctx))
+    return logits, cache
+
+
+def decode_cache(cfg: ModelConfig, ctx: ShardCtx, cache: Cache,
+                 batch: int) -> Cache:
+    """A prefill's cache of this rank's rows (over ``ctx.batch``; whole
+    along the sequence) -> its block under the decode layout of the same
+    global ``batch`` (``make_layout(cfg, "decode", ...)``: the KV slots
+    over ``kv_seq``, recurrent states over ``model``), for
+    ``decode_step`` under that layout's ctx."""
+    def whole(tree: dict) -> dict:  # the global shapes, which specs read
+        return {k: whole(v) if isinstance(v, dict) else
+                v if k == "pos" else
+                torch.empty((batch, *v.shape[1:]), device="meta")
+                for k, v in tree.items()}
+
+    like = [whole(layer) for layer in cache]
+    layout = sharding.make_layout(
+        cfg, "decode", "pod" in collectives.mesh_sizes(ctx.mesh), batch)
+    specs = sharding.cache_specs(cfg, ctx.mesh, layout, like)
+    return sharding.cache_blocks(cache, specs, ctx.mesh, batch_axes(ctx))

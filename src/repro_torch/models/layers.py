@@ -13,6 +13,10 @@ it (norms, RoPE, softmax, logits).
 Random init draws from the reference's distributions with an explicit
 ``torch.Generator`` on the target device: the bits differ from JAX's, so
 parity tests carry the JAX weights across (``repro_torch.interop``).
+
+In a sharded decode a weight may be this rank's block of it
+(``repro_torch.distributed.tp.Split``): ``linear``, ``rows`` and
+``logits_from_hidden`` then take it across the ranks.
 """
 from __future__ import annotations
 
@@ -23,6 +27,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.distributed import tp
 
 DEFAULT_PARAM_DTYPE = torch.bfloat16
 
@@ -85,8 +91,11 @@ def init_linear(generator: torch.Generator, d_in: int,
 def linear(p: Linear, x: torch.Tensor) -> torch.Tensor:
     """x (..., d_in) @ w (d_in, *out) -> (..., *out)."""
     w = p.w
-    y = torch.matmul(x, w.reshape(w.shape[0], -1).to(x.dtype))
-    y = y.reshape(*x.shape[:-1], *w.shape[1:])
+    if isinstance(w, tp.Split):
+        y = tp.linear(x, w)
+    else:
+        y = torch.matmul(x, w.reshape(w.shape[0], -1).to(x.dtype))
+        y = y.reshape(*x.shape[:-1], *w.shape[1:])
     if hasattr(p, "b"):
         y = y + p.b.to(y.dtype)
     return y
@@ -218,12 +227,20 @@ def init_embedding(generator: torch.Generator, vocab: int, d: int,
     return p
 
 
+def rows(table, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``; of a table split over ranks (``tp.Split``), its
+    lookup across them (``tp.rows``)."""
+    if isinstance(table, tp.Split):
+        return tp.rows(table, ids)
+    return table[ids]
+
+
 def embed(p: Embedding, tokens: torch.Tensor, scale: bool,
           d_model: int) -> torch.Tensor:
     """Rows of the table in its own dtype, which sets the model's compute
     dtype: bf16 as in the reference, float32 for a model widened with
     ``.float()`` (the plain path's float32 yardstick)."""
-    x = p.table[tokens]
+    x = rows(p.table, tokens)
     if scale:
         # the reference scales by sqrt(d) rounded to bf16; a Python float
         # of that value gives the same single rounding of the product and
@@ -243,7 +260,10 @@ def logits_from_hidden(table: torch.Tensor, h: torch.Tensor,
     operands are widened exactly and multiplied in float32, as JAX's
     ``preferred_element_type=float32`` product does. ``table`` may be a
     transposed view (an untied head stored (D, V)); it is widened a block
-    of rows at a time, so no float32 copy of the whole table is made."""
+    of rows at a time, so no float32 copy of the whole table is made. A
+    ``tp.Split`` table takes ``tp.logits``."""
+    if isinstance(table, tp.Split):
+        return tp.logits(table, h, final_cap)
     h32 = h.to(torch.float32)
     v, d = table.shape
     rows = max(1, LOGIT_CHUNK_ELEMS // d)

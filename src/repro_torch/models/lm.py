@@ -12,8 +12,9 @@ registers. A model is a stack of residual blocks described by
     "rec"         RG-LRU recurrence   dense
     "ssd"         Mamba-2 SSD         (none)
 Under a ``ShardCtx`` (``repro_torch.distributed``, ROADMAP queue 1 item
-14e) each rank runs the stack on its shard of the batch, and the MoE
-layers are expert-parallel: ``_run_moe`` is the JAX package's
+14e) each rank runs the stack on its shard of the batch (in serving also
+its block of the sequence, item 14f: ``repro_torch.models.decode``), and
+the MoE layers are expert-parallel: ``_run_moe`` is the JAX package's
 ``shard_map`` path written out in collectives.
 
 ``LM`` is an ``nn.Module``: the embedding (``(K, V, D)``, one table per
@@ -46,7 +47,8 @@ from torch.utils import checkpoint as ckpt_utils
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import collectives
-from repro_torch.distributed.ctx import ShardCtx, batch_axes, check_supported
+from repro_torch.distributed.ctx import (ShardCtx, batch_axes, check_train,
+                                        seq_axes)
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, mla, moe, rglru, ssd
 from repro_torch.models.layers import mlp, rmsnorm
@@ -257,9 +259,11 @@ def _run_moe(p: moe.MoE, x: torch.Tensor, cfg: ModelConfig,
     a ctx, expert parallelism over ``ctx.ep_axes``, as the JAX package's
     ``shard_map`` runs it. ``p`` then holds this rank's experts
     (``_ep_slice``) and the full router. The tokens are all-gathered over
-    the EP axes that shard them (``gather_axes``); the partial outputs of
-    the local experts are summed over the EP axes that replicate the
-    tokens (``psum_axes``) and reduce-scattered back over the others, in
+    the EP axes that shard them (``gather_axes``: those of ``ctx.batch``
+    along the rows, those of ``ctx.seq`` — a sequence-sharded prefill —
+    along the sequence); the partial outputs of the local experts are
+    summed over the EP axes that replicate the tokens (``psum_axes``) and
+    reduce-scattered back over the others, in
     float32, rounded once to the activations' dtype after (as the
     one-device sum over a token's k choices rounds once). The
     shared expert runs outside the EP region (inside, the sum would count
@@ -269,25 +273,25 @@ def _run_moe(p: moe.MoE, x: torch.Tensor, cfg: ModelConfig,
     mcfg = cfg.moe
     if ctx is None:
         return moe.moe_mlp(p, x, mcfg, cfg.mlp_act, capacity=capacity)
-    check_supported(ctx)
     mesh, ep_axes = ctx.mesh, tuple(ctx.ep_axes)
     e_start, e_local = _ep_slice(ctx, mcfg.padded_experts)
     if p.w_up.shape[0] != e_local:
         raise ValueError(f"the MoE holds {p.w_up.shape[0]} experts, this "
                          f"rank's slice of {ep_axes} is {e_local}")
-    b_axes = batch_axes(ctx)
-    gather_axes = [a for a in ep_axes if a in b_axes]
-    psum_axes = [a for a in ep_axes if a not in b_axes]
+    b_axes, s_axes = batch_axes(ctx), seq_axes(ctx)
+    gather_axes = [(a, 0 if a in b_axes else 1) for a in ep_axes
+                   if a in b_axes or a in s_axes]
+    psum_axes = [a for a in ep_axes if a not in b_axes and a not in s_axes]
     xg = x
-    for a in gather_axes:
-        xg = collectives.gather(xg, mesh, (a,), 0)
+    for a, dim in gather_axes:
+        xg = collectives.gather(xg, mesh, (a,), dim)
     y, aux = moe.moe_mlp(_Routed(p), xg, mcfg, cfg.mlp_act, e_start=e_start,
                          e_local=e_local, capacity=capacity,
                          out_dtype=torch.float32)
     if psum_axes:
         y = collectives.sum_over(y, mesh, psum_axes)
-    for a in reversed(gather_axes):
-        y = collectives.scatter_sum(y, mesh, (a,), 0)
+    for a, dim in reversed(gather_axes):
+        y = collectives.scatter_sum(y, mesh, (a,), dim)
     y = y.to(x.dtype)
     if hasattr(p, "shared"):
         y = y + mlp(p.shared, x, cfg.mlp_act)
@@ -418,12 +422,12 @@ def forward_hidden(model: LM, x: torch.Tensor, positions: torch.Tensor, *,
     (``torch.utils.checkpoint``), as ``jax.checkpoint`` does over the JAX
     package's scanned superblocks under ``remat_policy="full"`` (the
     policy of every config; ``"dots"`` raises); ``cfg.prefix``/``suffix``
-    are not. Under a ctx (a batch-split layout; ``seq`` and ``kv_seq``
-    set raise) ``x`` is this rank's shard of the batch. ``use``: see
+    are not. Under a ctx (a batch-split layout; ``seq`` set raises) ``x``
+    is this rank's shard of the batch. ``use``: see
     ``loss_fn``; each group of blocks (a repeat, or a block of the prefix
     or suffix) is gathered inside its forward, and so inside its
     recompute too."""
-    check_supported(ctx)
+    check_train(ctx)
     cfg = model.cfg
     blocks = list(model.blocks)
     n_pre, n_pat = len(cfg.prefix), len(cfg.pattern)
@@ -471,7 +475,7 @@ def embed(model: LM, tokens: torch.Tensor,
         x = torch.zeros((*tokens.shape[:2], cfg.d_model),
                         dtype=tables.dtype, device=tables.device)
         for k in range(cfg.n_codebooks):
-            x = x + tables[k][tokens[..., k]]
+            x = x + layers.rows(tables[k], tokens[..., k])
     else:
         x = layers.embed(model.embed, tokens, False, cfg.d_model)
     if cfg.patch_stub is not None and patches is not None:
@@ -572,7 +576,7 @@ def loss_fn(model: LM, batch: dict[str, torch.Tensor], *,
     the rank's share of the global loss (``_Shares``) and the metrics
     are the global values, the same on every rank. As in the JAX
     package, the MoE's capacity and aux loss are each EP group's."""
-    check_supported(ctx)
+    check_train(ctx)
     with _using(use, OUTER_PARTS):
         return _loss(model, batch, kernel, ctx, use)
 

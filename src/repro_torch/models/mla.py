@@ -9,7 +9,11 @@ compressed latent (``c_kv``, ``k_rope``) per position, and the
 up-projections fold into the query and output sides.
 
 Unlike the JAX package, ``mla_decode`` writes the new latent into the
-cache in place and returns the same cache dict.
+cache in place and returns the same cache dict. Under a ctx whose
+``kv_seq`` splits the latent cache's slots (sharded serving), each rank
+attends over its own slots and the ranks combine their partial
+softmaxes (``tp.softmax_combine``); the absorbed projections read their
+weights in place (``tp.einsum``).
 """
 from __future__ import annotations
 
@@ -17,6 +21,8 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import MLAConfig
+from repro_torch.distributed import tp
+from repro_torch.distributed.ctx import ShardCtx, kv_axes
 from repro_torch.models import layers
 from repro_torch.models.layers import apply_rope, init_linear, linear, rmsnorm
 
@@ -81,6 +87,8 @@ def _latents(p: MLA, x: torch.Tensor, positions: torch.Tensor,
 
 def _out_proj(p: MLA, out: torch.Tensor) -> torch.Tensor:
     """(B, S, H, v_dim) x wo (H, v_dim, D) -> (B, S, D)."""
+    if isinstance(p.wo.w, tp.Split):
+        return tp.einsum("bshv,hvm->bsm", out, p.wo.w)
     b, s, h, dv = out.shape
     return torch.matmul(out.reshape(b, s, h * dv),
                         p.wo.w.to(out.dtype).reshape(h * dv, -1))
@@ -146,36 +154,62 @@ def mla_cache_from_latents(c_kv: torch.Tensor, k_rope: torch.Tensor,
     return cache
 
 
+def _absorb(eq: str, x: torch.Tensor, w) -> torch.Tensor:
+    """``einsum(eq, x, w)`` in ``x``'s dtype, ``w`` whole or in place."""
+    if isinstance(w, tp.Split):
+        return tp.einsum(eq, x, w)
+    return torch.einsum(eq, x, w.to(x.dtype))
+
+
 def mla_decode(p: MLA, x: torch.Tensor, cache: dict, pos: int, *,
-               cfg: MLAConfig, rope_theta: float, eps: float = 1e-6
-               ) -> tuple[torch.Tensor, dict]:
+               cfg: MLAConfig, rope_theta: float, eps: float = 1e-6,
+               ctx: ShardCtx | None = None) -> tuple[torch.Tensor, dict]:
     """One decode step in absorbed form. x (B, 1, D); writes the new
-    latent at ``pos`` in place and returns (y (B, 1, D), the cache)."""
+    latent at ``pos`` in place and returns (y (B, 1, D), the cache).
+    Under a ctx with ``kv_seq``, the latent cache is this rank's block
+    of its slots over ``kv_seq`` (``cache_spec``'s split where ``kv_seq``
+    divides the length: a latent cache carries no slot vector that would
+    say otherwise)."""
     b = x.shape[0]
-    length = cache["c_kv"].shape[1]
+    block = cache["c_kv"].shape[1]
+    axes = kv_axes(ctx)
+    lo = tp.axes_index(ctx.mesh, axes) * block if axes else 0
+    length = block * (tp.axes_size(ctx.mesh, axes) if axes else 1)
     if pos >= length:
         raise ValueError(f"position {pos} is past the latent cache's "
                          f"max_len={length}")
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q_nope, q_rope = _queries(p, x, positions, cfg, rope_theta, eps)
     c_new, kr_new = _latents(p, x, positions, cfg, rope_theta, eps)
-    cache["c_kv"][:, pos] = c_new[:, 0].to(cache["c_kv"].dtype)
-    cache["k_rope"][:, pos] = kr_new[:, 0].to(cache["k_rope"].dtype)
+    if lo <= pos < lo + block:  # this rank holds the new latent's slot
+        cache["c_kv"][:, pos - lo] = c_new[:, 0].to(cache["c_kv"].dtype)
+        cache["k_rope"][:, pos - lo] = kr_new[:, 0].to(cache["k_rope"].dtype)
     c_kv, k_rope = cache["c_kv"], cache["k_rope"]
 
     # absorb W_uk into the query: q_c (B, 1, H, kv_lora); wuk w is (c, h, d)
-    q_c = torch.einsum("bqhd,chd->bqhc", q_nope,
-                       p.wuk.w.to(q_nope.dtype))
+    q_c = _absorb("bqhd,chd->bqhc", q_nope, p.wuk.w)
     scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
     scores = (torch.einsum("bqhc,bsc->bhqs", q_c.to(torch.float32),
                            c_kv.to(torch.float32))
               + torch.einsum("bqhr,bsr->bhqs", q_rope.to(torch.float32),
                              k_rope.to(torch.float32))) * scale
-    s_idx = torch.arange(length, device=x.device)
+    s_idx = torch.arange(lo, lo + block, device=x.device)
     scores.masked_fill_(s_idx > pos, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     # attend in latent space, then apply W_uv and W_o
-    out_c = torch.einsum("bhqs,bsc->bqhc", probs, c_kv.to(probs.dtype))
-    out = torch.einsum("bqhc,chd->bqhd", out_c,  # wuv w is (c, h, v_dim)
-                       p.wuv.w.to(out_c.dtype))
+    if axes:
+        # this rank's slots: its output in float32 and its log-sum-exp
+        # (-inf where it holds no live slot), combined across the ranks
+        live = bool(lo <= pos)
+        out_c = torch.einsum("bhqs,bsc->bqhc", probs.to(torch.float32),
+                             c_kv.to(torch.float32))
+        lse = torch.logsumexp(scores, dim=-1)[:, :, 0]       # (B, H)
+        if not live:
+            out_c, lse = torch.zeros_like(out_c), torch.full_like(
+                lse, -torch.inf)
+        out_c = tp.softmax_combine(out_c, lse, ctx.mesh, axes, x.dtype)
+    else:
+        out_c = torch.einsum("bhqs,bsc->bqhc", probs, c_kv.to(probs.dtype))
+    out = _absorb("bqhc,chd->bqhd", out_c,  # wuv w is (c, h, v_dim)
+                  p.wuv.w)
     return _out_proj(p, out), cache

@@ -16,8 +16,10 @@ The full-sequence path runs the recurrence through the ``rglru_scan`` op
 (``kernel=``, ``repro_torch.kernels.dispatch``): under ``"auto"`` a CUDA
 tensor launches the CUDA kernel, a CPU tensor takes the plain sequential
 version. Decode carries ``{conv (B, cw-1, W) bf16, h (B, W) float32}``
-and updates that dict in place. ``causal_conv1d`` is shared with the SSD
-block (``repro_torch.models.ssd``), as in the JAX package.
+and updates that dict in place; under a ctx (sharded serving) this
+rank's blocks of both along W (``cache_spec``), gathered whole for the
+step, the new state's block kept. ``causal_conv1d`` is shared with the
+SSD block (``repro_torch.models.ssd``), as in the JAX package.
 """
 from __future__ import annotations
 
@@ -26,6 +28,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from repro_torch.configs.base import RGLRUConfig
+from repro_torch.distributed import tp
+from repro_torch.distributed.ctx import ShardCtx
 from repro_torch.kernels.rglru_scan import ops as scan_ops
 from repro_torch.kernels.rglru_scan.ref import linear_scan_ref
 from repro_torch.models import layers
@@ -76,10 +80,15 @@ def init_rglru_block(generator: torch.Generator, d_model: int,
 
 def _block_linear(w: torch.Tensor, b: torch.Tensor,
                   u: torch.Tensor) -> torch.Tensor:
-    """Block-diagonal linear: u (..., W) with W = nb * bw."""
+    """Block-diagonal linear: u (..., W) with W = nb * bw; ``w`` whole
+    or in place (``tp.Split``)."""
     nb, bw, _ = w.shape
     ub = u.reshape(*u.shape[:-1], nb, bw)
-    y = torch.einsum("...nb,nbc->...nc", ub, w.to(u.dtype))
+    if isinstance(w, tp.Split):
+        y = tp.einsum("tnb,nbc->tnc", ub.reshape(-1, nb, bw),
+                      w).reshape(ub.shape)
+    else:
+        y = torch.einsum("...nb,nbc->...nc", ub, w.to(u.dtype))
     y = y + b.to(u.dtype)
     return y.reshape(u.shape)
 
@@ -147,15 +156,23 @@ def init_rglru_cache(batch: int, d_model: int, cfg: RGLRUConfig,
 
 
 def rglru_decode(p: RGLRU, x: torch.Tensor, cache: dict[str, torch.Tensor],
-                 cfg: RGLRUConfig
+                 cfg: RGLRUConfig, ctx: ShardCtx | None = None
                  ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """One-token step. x (B, 1, D). Puts the new conv state and ``h`` into
     ``cache`` and returns it."""
+    conv, h0 = cache["conv"], cache["h"]
+    if ctx is not None:
+        w = cfg.lru_width or x.shape[-1]
+        conv = tp.whole_state(conv, w, -1, ctx.mesh)
+        h0 = tp.whole_state(h0, w, -1, ctx.mesh)
     gate = F.gelu(linear(p.in_gate, x), approximate="tanh")
     u = linear(p.in_rec, x)
-    u, cache["conv"] = causal_conv1d(p.conv_w, p.conv_b, u, cache["conv"])
+    u, conv = causal_conv1d(p.conv_w, p.conv_b, u, conv)
     a, b = _gates(p, cfg, u)  # (B, 1, W)
-    h = a[:, 0] * cache["h"] + b[:, 0]
-    cache["h"] = h
+    h = a[:, 0] * h0 + b[:, 0]
     y = h[:, None].to(x.dtype) * gate
+    if ctx is not None:
+        conv = tp.state_block(conv, cache["conv"], -1, ctx.mesh)
+        h = tp.state_block(h, cache["h"], -1, ctx.mesh)
+    cache["conv"], cache["h"] = conv, h
     return linear(p.out, y), cache

@@ -14,7 +14,10 @@ package computes it outside its kernel. ``ssd_reference`` is the exact
 sequential recurrence, the oracle of both.
 
 Decode carries ``{conv {x, bc} (bf16), h (B, H, P, N) float32}`` — O(1)
-per token — and updates that dict in place.
+per token — and updates that dict in place. Under a ctx (sharded
+serving) the cache holds this rank's blocks of the states (``h``'s heads
+and ``x``'s width over ``model``, ``cache_spec``): the step gathers them
+whole, runs, and keeps this rank's blocks of the new ones.
 """
 from __future__ import annotations
 
@@ -23,6 +26,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from repro_torch.configs.base import SSMConfig
+from repro_torch.distributed import tp
+from repro_torch.distributed.ctx import ShardCtx
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import layers
 from repro_torch.models.layers import frozen, init_linear, linear
@@ -216,19 +221,29 @@ def init_ssd_cache(batch: int, d_model: int, cfg: SSMConfig,
     }
 
 
-def ssd_decode(p: SSD, x: torch.Tensor, cache: dict, cfg: SSMConfig
-               ) -> tuple[torch.Tensor, dict]:
+def ssd_decode(p: SSD, x: torch.Tensor, cache: dict, cfg: SSMConfig,
+               ctx: ShardCtx | None = None) -> tuple[torch.Tensor, dict]:
     """One-token step. x (B, 1, D). Puts the new conv states and ``h``
     into ``cache`` and returns it."""
-    z, xs, xh, b, c, dt, a, new_conv, d_inner = _prep(p, x, cfg,
-                                                      cache["conv"])
+    conv, h0 = cache["conv"], cache["h"]
+    if ctx is not None:
+        d_inner, n_heads = dims(x.shape[-1], cfg)
+        conv = {"x": tp.whole_state(conv["x"], d_inner, -1, ctx.mesh),
+                "bc": tp.whole_state(conv["bc"], 2 * cfg.d_state, -1,
+                                     ctx.mesh)}
+        h0 = tp.whole_state(h0, n_heads, 1, ctx.mesh)
+    z, xs, xh, b, c, dt, a, new_conv, d_inner = _prep(p, x, cfg, conv)
     f32 = torch.float32
     decay = torch.exp(dt[:, 0] * a[None, :])                    # (B, H)
     upd = (dt[:, 0][..., None, None] * xh[:, 0][..., None].to(f32)
            * b[:, 0][:, None, None, :].to(f32))
-    h = decay[..., None, None] * cache["h"] + upd
+    h = decay[..., None, None] * h0 + upd
     y = torch.einsum("bhpn,bn->bhp", h, c[:, 0].to(f32))
     y_flat = y.reshape(x.shape[0], 1, d_inner).to(x.dtype)
+    if ctx is not None:
+        new_conv = {k: tp.state_block(v, cache["conv"][k], -1, ctx.mesh)
+                    for k, v in new_conv.items()}
+        h = tp.state_block(h, cache["h"], 1, ctx.mesh)
     cache["conv"].update(new_conv)
     cache["h"] = h
     return _finish(p, z, xs, y_flat, cfg), cache

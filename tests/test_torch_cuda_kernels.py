@@ -281,6 +281,104 @@ def test_decode_attention_kernel_matches_plain(cuda_device, ring):
     _assert_attention_close(got, want)
 
 
+@pytest.mark.parametrize("shape", [
+    # (B, Sq, q_offset, H, KV, hd, window, softcap): a block of rows of a
+    # sequence-sharded prefill over its causal prefix
+    (2, 150, 150, 8, 4, 256, None, 50.0),   # gemma2-2b's head, half of 300
+    (1, 128, 300, 8, 4, 256, 16, 50.0),
+    (1, 1, 299, 4, 2, 64, None, None),
+    (2, 65, 63, 4, 2, 64, 100, None),
+    (1, 129, 1, 16, 1, 128, 64, None),       # MQA, group 16
+    (1, 2304, 2304, 8, 4, 256, 4096, 50.0),  # phase 19's rank block
+])
+def test_flash_attention_q_offset_matches_plain(cuda_device, shape):
+    """The kernel on a block of rows at ``q_offset`` against the plain
+    version (the row gate), and bit for bit against the whole call's
+    rows: a tile the rows cannot see leaves them unchanged."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    b, sq, off, h, kv, hd, window, cap = shape
+    rng = np.random.default_rng(sq + off)
+    q, k, v = (_bf16(rng, (b, off + sq, n, hd), cuda_device)
+               for n in (h, kv, kv))
+    qb = q[:, off:].contiguous()
+    kw = dict(window=window, softcap=cap, q_offset=off)
+    got = fa_ops.flash_attention(qb, k, v, kernel="on", **kw)
+    want = fa_ops.flash_attention(qb, k, v, kernel="off", **kw)
+    _assert_attention_close(got, want)
+    whole = fa_ops.flash_attention(q, k, v, window=window, softcap=cap,
+                                   kernel="on")
+    assert torch.equal(got, whole[:, off:])
+    with pytest.raises(ValueError, match="causal prefix"):
+        fa_ops.flash_attention(qb, k[:, 1:].contiguous(),
+                               v[:, 1:].contiguous(), kernel="on", **kw)
+
+
+@pytest.mark.parametrize("case", [
+    # (cache length, pos, window, slot layout, head shape (H, KV, hd))
+    (4624, 4615, None, "dense", (8, 4, 256)),   # phase 19's dense cache
+    (1156, 4615, None, "block", (8, 4, 256)),   # a rank's block of it
+    (1156, 4615, None, "empty", (8, 4, 256)),   # a block with nothing live
+    (64, 1000, 64, "ring", (8, 4, 256)),
+    (300, 23, None, "dense", (16, 1, 256)),     # MQA, group 16
+])
+def test_decode_attention_lse_matches_plain(cuda_device, case):
+    """``return_lse``: the float32 output under the row gate and the
+    log-sum-exp within 2^-6 of max(1, |lse|) of the plain version's; a
+    cache with no live slot gives 0 and -inf."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    length, pos, window, layout, (h, kv, hd) = case
+    rng = np.random.default_rng(length + pos)
+    q = _bf16(rng, (2, 1, h, hd), cuda_device)
+    k, v = (_bf16(rng, (2, length, kv, hd), cuda_device) for _ in range(2))
+    s = np.arange(length)
+    slots = {"dense": np.where(s <= pos, s, -1),
+             "block": np.where(s + length <= pos, s + length, -1),
+             "empty": np.full(length, -1),
+             "ring": pos - (pos - s) % length}[layout]
+    slots = torch.from_numpy(slots.astype(np.int32)).to(cuda_device)
+    kw = dict(window=window, softcap=50.0, return_lse=True)
+    out, lse = da_ops.decode_attention(q, k, v, slots, pos, kernel="on",
+                                       **kw)
+    want, wlse = da_ops.decode_attention(q, k, v, slots, pos, kernel="off",
+                                         **kw)
+    assert out.dtype == lse.dtype == torch.float32
+    assert lse.shape == (2, h)
+    assert torch.equal(torch.isneginf(lse), torch.isneginf(wlse))
+    if layout == "empty":
+        assert torch.isneginf(lse).all() and not out.any()
+        return
+    _assert_attention_close(out, want)
+    err = (lse - wlse).abs()
+    assert bool((err <= ATTN_REL * wlse.abs().clamp(min=1.0)).all()), \
+        float(err.max())
+    plain = da_ops.decode_attention(q, k, v, slots, pos, window=window,
+                                    softcap=50.0, kernel="on")
+    _assert_attention_close(out.to(torch.bfloat16), plain)
+
+
+def test_sharded_serve_smoke_on_the_card(cuda_device, monkeypatch, capsys):
+    """``chip_smoke.py``'s phase 19 at gemma2-2b's smoke config on the
+    card: four ranks on cuda:0, the sequence-sharded prefill and the
+    KV-sharded decode through both kernels (every call checked against its
+    plain version), against the model unsharded with the kernels."""
+    import os
+    from pathlib import Path
+
+    root = os.path.join(os.path.dirname(__file__), os.pardir)
+    monkeypatch.syspath_prepend(root)   # the spawned ranks import it too
+    import chip_smoke as cs
+
+    for name, value in (("SERVE_MP_SMOKE", True), ("SERVE_MP_DEPTH", 4),
+                        ("SERVE_MP_PROMPT", 64), ("SERVE_MP_LEN", 96),
+                        ("SERVE_MP_STEPS", 3), ("SERVE_MP_B1", (8, 2))):
+        monkeypatch.setattr(cs, name, value)
+    cs.load_peaks()
+    out = cs.sharded_serving(cuda_device, Path(root).resolve() / "src")
+    assert min(out["launches"].values()) > 0
+    text = capsys.readouterr().out
+    assert "[19] phase 19:" in text and "gate failed" not in text
+
+
 @pytest.mark.parametrize("case", [
     # (cache length, pos, window, slot layout)
     (512, 300, 64, "filled"),    # positions past pos, and a window

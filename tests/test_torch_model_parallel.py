@@ -904,18 +904,40 @@ def test_plans_equal_jax(model_degree):
     assert elastic.plan_for(2, model_degree=2).mesh_shape == (1, 2)
 
 
-def test_ctx_with_sequence_sharding_raises():
-    """A sequence- or KV-sequence-sharded ctx raises, naming the
-    sharded-serving item; ``constrain`` is the identity."""
+def test_ctx_with_sequence_sharding_raises(tmp_path):
+    """A sequence-sharded ctx raises in the training loss, naming item
+    14g (training under a sequence-sharded layout); prefill and decode
+    under ``seq`` / ``kv_seq`` ctxs run (sharded serving, item 14f: here
+    on a one-rank world, whose splits are trivial, equal to the one-device
+    path); ``constrain`` is the identity."""
+    import torch.distributed as dist
+
     from repro_torch.distributed import ctx as ctx_mod
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import decode
 
     cfg = get_smoke_config("granite-moe-3b-a800m")
     model = lm.init(torch.Generator("cpu").manual_seed(0), cfg)
     batch = {"tokens": torch.from_numpy(tokens(cfg))}
-    for kw in ({"seq": ("model",)}, {"kv_seq": ("model",)}):
-        ctx = ShardCtx(mesh=None, batch=("data",), **kw)
-        with pytest.raises(NotImplementedError, match="14f"):
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_test_mesh(1, 1)
+        ctx = ShardCtx(mesh=mesh, batch=("data",), seq=("model",))
+        with pytest.raises(NotImplementedError, match="14g"):
             lm.loss_fn(model, batch, ctx=ctx)
+        prompt = batch["tokens"][:, :SEQ]
+        logits, cache = decode.prefill(model, prompt, 2 * SEQ, ctx=ctx)
+        want, wcache = decode.prefill(model, prompt, 2 * SEQ)
+        assert torch.equal(logits, want)
+        dctx = ShardCtx(mesh=mesh, batch=("data",), kv_seq=("model",))
+        step = batch["tokens"][:, SEQ:SEQ + 1]
+        got, _ = decode.decode_step(model, cache, step, SEQ, ctx=dctx)
+        want, _ = decode.decode_step(model, wcache, step, SEQ)
+        assert torch.equal(got, want)
+    finally:
+        dist.destroy_process_group()
+        collectives.forget_groups()
     x = torch.ones(2)
     assert ctx_mod.constrain(x, ctx, ("data",)) is x
 
@@ -931,6 +953,7 @@ def test_mesh_of_the_wrong_size_raises():
 
 def test_new_modules_import_no_jax():
     mods = ["repro_torch.distributed.ctx", "repro_torch.distributed.sharding",
+            "repro_torch.distributed.tp", "repro_torch.models.decode",
             "repro_torch.distributed.collectives",
             "repro_torch.distributed.pipeline",
             "repro_torch.distributed.elastic", "repro_torch.launch.specs",

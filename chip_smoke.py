@@ -5,8 +5,9 @@
     python3 chip_smoke.py --gates      # phases 1-3, 5-7, 9, 11, 15, gates recorded
     python3 chip_smoke.py --gates 16   # phase 16 alone (the seven models)
     python3 chip_smoke.py --gates 17   # phase 17 alone (training)
-    python3 chip_smoke.py --gates 18   # phase 18 alone (model parallel)
+    python3 chip_smoke.py --gates 18   # phases 18 and 20 (model parallel)
     python3 chip_smoke.py --gates 19   # phase 19 alone (sharded serving)
+    python3 chip_smoke.py --gates 21   # phase 21 alone (the dry run)
     python3 chip_smoke.py --faults     # --gates on planted faults F9-F20
     python3 chip_smoke.py --faults F12 F13 F14   # only those (+ control)
 
@@ -251,7 +252,24 @@ nonzero:
      model unsharded in this process with the kernels, on the same
      weights (``lm.init`` from seed 0); both kernels launched on every
      rank; prefill and decode-step times, collective bytes and
-     collectives a step, peak memory per rank.
+     collectives a step, peak memory per rank;
+ 20. training under the sequence-sharded layout, inside phase 18's
+     world: its four ranks form a (pod 2, data 1, model 2) mesh under
+     ``make_layout(cfg, "train", multi_pod=True)`` (the sequence over
+     pod, K and V gathered with gradients) and take SEQ_STEPS AdamW steps
+     of phase 18's granite-moe-3b-a800m (aux weight 0) on 2 x 2,048
+     tokens, the unsharded run's expert choices replayed; each step's
+     loss and grad norm and step 0's gathered gradients against the
+     unsharded run at phase 18's allowances, the sharded evaluation loss
+     with ``flash_attention`` (one launch a layer a rank, the second pod
+     rank's at ``q_offset``) gated as 18(b); bytes a rank a step;
+ 21. the dry run (``repro_torch.launch.dryrun``, subprocesses in
+     parallel on the host): gemma2-2b ``train_4k`` on the multi-pod
+     mesh (512 fake ranks, the sequence over pod) and mamba2-370m
+     ``decode_32k`` on the single mesh, each record ok with FLOPs, their
+     roofline rows on the H100's peaks; ungated, the dry run's temp
+     bytes of phase 17's one-device gemma2-2b step beside the peak
+     phase 17 measured.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. A kernel's ``launches`` there are those
@@ -264,14 +282,14 @@ of its main path's run (phase 4, 8, 10 or 12; the attention kernels'
 processes' included), ``training_eval_launches`` (the attention
 kernels, ``ssd_scan`` and ``rglru_scan``) phase 17's evaluation losses
 and ``flash_attention``'s ``sharded_eval_launches`` phase 18's (its four
-ranks'), the attention kernels' ``sharded_serve_launches`` phase 19's
-(its four ranks');
+ranks') and ``sharded_seq_eval_launches`` phase 20's, the attention
+kernels' ``sharded_serve_launches`` phase 19's (its four ranks');
 ``hist_accum``,
 which no main path launches, reads 0 and gives its launches in phase 2 as
 ``check_launches``. Needs CUDA and the repository's
 ``src/`` beside this script (or ``--src``); imports nothing of JAX or of
 ``repro``. ``--gates`` records every gate of phases 2, 3, 5-7, 9, 11 and
-15, and of 16-19 where they are named (the worst multiple of its
+15, and of 16-21 where they are named (20 runs inside 18) (the worst multiple of its
 allowance; a bit gate as 0 or inf; phase 15 runs its own unsharded
 references; phase 16 skips its serving) instead of
 stopping at the first that fails, and prints them as its last line;
@@ -2810,7 +2828,32 @@ MP_NORM_RTOL = 8e-4
 MP_PARAM_MULT = 2.0
 # the settings a spawned rank takes from the parent (a rehearsal sets some)
 MP_SETTINGS = ("MP_DEPTH", "MP_SEQ", "MP_BATCH", "MP_STEPS", "MP_LR",
-               "MP_SMOKE", "MP_PIPE", "MP_HIER_SHAPE")
+               "MP_SMOKE", "MP_PIPE", "MP_HIER_SHAPE", "SEQ_PHASE",
+               "SEQ_LEN", "SEQ_BATCH", "SEQ_STEPS")
+
+# Phase 20: training under the sequence-sharded layout, run inside phase
+# 18's world (no second spawn or build): its four ranks form a (pod 2,
+# data 1, model 2) mesh under make_layout(cfg, "train", multi_pod=True) —
+# the batch over (data, model), the sequence over pod (each pod rank
+# holds SEQ_LEN / 2 positions of its row; K and V gathered over pod with
+# an autograd gather), experts over model — and train phase 18's config
+# (granite-moe-3b-a800m at full width, depth MP_DEPTH, no token dropped)
+# with the aux weight 0: the aux loss is each routing group's (a pod
+# rank's block), which the unsharded run cannot take (the CPU tests
+# hold it against each group's). The unsharded run on the same batches replays its
+# choices. Gates at phase 18's allowances: each step's loss (MP_LOSS_RTOL)
+# and grad norm (MP_NORM_RTOL, or twice the unsharded run's own distance
+# from its float32 copy where that is larger: after the first update the
+# grad norm of these random weights moves with bf16 rounding, 7.1e-2
+# between the two at step 1 on an H100, where the sharded run read
+# 2.9e-3), step 0's gathered gradients (each
+# parameter's within MP_PARAM_MULT times its float32 floor) and the
+# sharded evaluation loss with flash_attention (18(b)'s gate, one launch
+# a layer on each rank, the second pod rank's at q_offset SEQ_LEN / 2).
+SEQ_PHASE = True                 # model_parallel runs phase 20 too
+SEQ_MESH = (2, 1, 2)             # (pod, data, model)
+SEQ_LEN, SEQ_BATCH = 2048, 2     # the global batch: a row a (data, model)
+SEQ_STEPS = 2
 
 
 def mp_config():
@@ -2949,6 +2992,140 @@ def mp_reference(dev, cfg, routes: list | None = None,
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return out
+
+
+def seq_config():
+    """Phase 20's config: phase 18's with the aux weight 0."""
+    import dataclasses
+
+    cfg = mp_config()
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, aux_loss_weight=0.0))
+
+
+def _seq_batch(cfg, step: int) -> dict:
+    """Phase 20's global Markov batch of step ``step``, on the host."""
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, MarkovSource
+
+    src = MarkovSource(cfg, DataConfig(seq_len=SEQ_LEN,
+                                       batch_size=SEQ_BATCH))
+    return {k: torch.from_numpy(v) for k, v in src.batch_at(step).items()}
+
+
+def seq_reference(dev, cfg, routes: list | None = None,
+                  widen: bool = False) -> dict:
+    """Phase 20's unsharded run: the model of seed 0, SEQ_STEPS AdamW
+    steps on the whole batch, recording each step's expert choices
+    (``routes`` None) or replaying ``routes``; ``widen``: in float32.
+    Returns the history, the choices and step 0's gradients (float32)."""
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.training.optimizer import make_optimizer
+
+    model = lm.init(torch.Generator(dev).manual_seed(0), cfg)
+    if widen:
+        model = model.float()
+    model.requires_grad_(True)
+    params = dict(model.named_parameters())
+    groups = lm.leaf_groups(model)
+    opt = make_optimizer(cfg.optimizer, lr=MP_LR)
+    state = opt.init(params, groups)
+    hist, recorded, grads0 = [], [], None
+    for step in range(SEQ_STEPS):
+        batch = {k: v.to(dev) for k, v in _seq_batch(cfg, step).items()}
+        for p in params.values():
+            p.grad = None
+        record: list = []
+        queue = None if routes is None else routes[step]
+        with moe_routes_by_input(record, queue, []):
+            total, m = lm.loss_fn(model, batch)
+            total.backward()
+        recorded.append(record)
+        grads = {k: p.grad for k, p in params.items()}
+        if grads0 is None:
+            grads0 = {k: g.float().clone() for k, g in grads.items()}
+        _, state, norm = opt.update(params, grads, state, step, groups)
+        hist.append({"loss": float(m["loss"]), "grad_norm": float(norm)})
+    del model, params, state
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"history": hist, "routes": recorded, "grads": grads0}
+
+
+class _FirstGrads:
+    """An optimizer that keeps its first update's gradients gathered
+    whole (a sharded model's), then updates as ``opt``."""
+
+    def __init__(self, opt):
+        self.opt, self.grads = opt, None
+
+    def update(self, params, grads, state, step, groups=None, sharded=None):
+        from repro_torch.distributed import sharding
+
+        if self.grads is None:
+            self.grads = {n: sharding.gather_full(
+                g, sharded.specs[n], sharded.mesh).cpu()
+                for n, g in grads.items()}
+        return self.opt.update(params, grads, state, step, groups, sharded)
+
+
+def _seq_rank(dev, rank: int, tmp: str) -> dict:
+    """Phase 20 on one rank of phase 18's world: SEQ_STEPS sharded steps
+    under the two-pod train layout, the pod rank's block of the recorded
+    choices replayed; step 0's gradients gathered (rank 0 writes them);
+    the sharded evaluation loss (``_mp_eval``)."""
+    import torch
+
+    from repro_torch.distributed import collectives, sharding
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.training.optimizer import make_optimizer
+    from repro_torch.training.step import make_train_step
+
+    t_rank = time.perf_counter()
+    cfg = seq_config()
+    mesh = make_test_mesh(SEQ_MESH[1], SEQ_MESH[2], n_pod=SEQ_MESH[0])
+    ctx = sharding.make_ctx(cfg, mesh, sharding.make_layout(
+        cfg, "train", True, SEQ_BATCH))
+    pod = collectives.mesh_coords(mesh)["pod"]
+    half = SEQ_LEN // SEQ_MESH[0]
+    routes = torch.load(Path(tmp) / "seq_routes.pt")
+    queue = [r.reshape(SEQ_BATCH, SEQ_LEN, -1)[:, pod * half:(pod + 1)
+                                               * half].reshape(-1,
+                                                               r.shape[-1])
+             for step in routes for r in step]
+    sm = sharding.ShardedModel.init(cfg, ctx, 0, dev)
+    opt = _FirstGrads(make_optimizer(cfg.optimizer, lr=MP_LR))
+    state = opt.opt.init(sm.shards, sm.groups, sharded=sm)
+    step_fn = make_train_step(cfg, opt, ctx=ctx)
+    hist, agree = [], []
+    with moe_routes_by_input([], queue, agree):
+        for step in range(SEQ_STEPS):
+            batch = {k: v.to(dev) for k, v in sharding.batch_rows(
+                _seq_batch(cfg, step), ctx).items()}
+            before = sum(collectives.BYTES.values())
+            _sync(dev)
+            t0 = time.perf_counter()
+            sm, state, m = step_fn(sm, state, batch, step)
+            _sync(dev)
+            hist.append({"loss": float(m["loss"]),
+                         "grad_norm": float(m["grad_norm"]),
+                         "ms": (time.perf_counter() - t0) * 1e3,
+                         "bytes": sum(collectives.BYTES.values())
+                         - before})
+    if rank == 0:
+        torch.save(opt.grads, Path(tmp) / "seq_grads.pt")
+    ebatch = {k: v.to(dev) for k, v in sharding.batch_rows(
+        _seq_batch(cfg, SEQ_STEPS), ctx).items()}
+    ev = _mp_eval(dev, cfg, sm, ctx, ebatch, model_counters())
+    del sm, state, opt
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"history": hist, "eval": ev, "agree": agreement(agree),
+            "layout": [ctx.batch, ctx.seq, tuple(ctx.ep_axes)],
+            "s": time.perf_counter() - t_rank}
 
 
 def _sync(dev) -> None:
@@ -3091,6 +3268,8 @@ def model_parallel_rank(rank: int, src: str, store: str, tmp: str,
             _mp_batch(cfg, MP_STEPS), ctx).items()}
         out["eval"] = _mp_eval(dev, cfg, sm, ctx, ebatch, model_counters())
         out["collectives"] = _mp_collectives(dev)
+        if SEQ_PHASE:  # before (c): its mesh leaves ranks out
+            out["seq"] = _seq_rank(dev, rank, tmp)
         # (c) the state gathered (the checkpoint's one-device layout)
         full = sm.full_params()
         ckdir = Path(tmp) / "ckpt"
@@ -3120,6 +3299,99 @@ def model_parallel_rank(rank: int, src: str, store: str, tmp: str,
         torch.save(out, Path(tmp) / f"rank{rank}.pt")
     finally:
         multihost.shutdown()
+
+
+def seq_gates(dev, seq: dict, seq32: dict, ranks: list,
+              t_seq: float) -> dict:
+    """Phase 20's gates on what its ranks measured inside phase 18's
+    world (``_seq_rank``) against the unsharded run (``seq_reference``)
+    and its float32 copy; returns the measurements and ``failed``."""
+    import torch
+
+    failed: list[str] = []
+    if not ranks:
+        record_gate("phase 20 ranks", math.inf)
+        return {"failed": ["(20) no rank finished"]}
+    runs = [r["seq"] for r in ranks]
+    r0 = runs[0]
+    worst = {"loss": 0.0, "grad_norm": 0.0}
+    norm_gate, finite = 0.0, True
+    for h, w, w32 in zip(r0["history"], seq["history"], seq32["history"],
+                         strict=True):
+        for key in worst:
+            finite &= math.isfinite(h[key])
+            worst[key] = max(worst[key], abs(h[key] - w[key]) / abs(w[key]))
+        # the grad norm after an update: MP_NORM_RTOL, or twice the
+        # unsharded run's own distance from its float32 copy where that
+        # is larger (7.1e-2 at step 1 on an H100)
+        allow = max(MP_NORM_RTOL, 2 * abs(w32["grad_norm"] - w["grad_norm"])
+                    / abs(w["grad_norm"]))
+        norm_gate = max(norm_gate, abs(h["grad_norm"] - w["grad_norm"])
+                        / abs(w["grad_norm"]) / allow)
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm(a.float() - b.float())
+                     ) / max(float(torch.linalg.vector_norm(b.float())),
+                             1e-30)
+
+    want = seq["grads"]
+    got = seq["sharded_grads"]
+    per_leaf = {n: (rel(got[n].to(w.device), w),
+                    rel(seq32["grads"][n], w)) for n, w in want.items()}
+    gworst = max(((e / (MP_PARAM_MULT * f) if f else
+                   (0.0 if e == 0 else math.inf)), n, e, f)
+                 for n, (e, f) in per_leaf.items())
+    record_gate("phase 20 loss", worst["loss"] / MP_LOSS_RTOL)
+    record_gate("phase 20 grad norm", norm_gate)
+    record_gate("phase 20 gradients", gworst[0])
+    if not finite or worst["loss"] > MP_LOSS_RTOL or not norm_gate <= 1.0:
+        failed.append(f"(20) steps {r0['history']} vs unsharded "
+                      f"{seq['history']}: worst {worst}")
+    if not gworst[0] <= 1.0:
+        failed.append(f"(20) gradient of {gworst[1]}: {gworst[2]} of its "
+                      f"norm, floor {gworst[3]}")
+    if not all([h["loss"] for h in r["history"]]
+               == [h["loss"] for h in r0["history"]] for r in runs):
+        failed.append("(20) the ranks' global losses differ")
+    log(f"[20] sharded on a {' x '.join(map(str, SEQ_MESH))} (pod, data, "
+        f"model) mesh, layout (batch, seq, experts) "
+        f"{json.dumps(r0['layout'])}: rank 0 steps "
+        f"{json.dumps(r0['history'])}; worst relative loss / grad-norm "
+        f"difference {json.dumps(worst)} (the grad norm's gate read "
+        f"{norm_gate} of its allowance); step 0's gradients: the worst "
+        f"leaf against {MP_PARAM_MULT} x its float32 floor {gworst[0]} "
+        f"({gworst[1]}: {gworst[2]} of its norm, floor {gworst[3]}); "
+        f"collective bytes a step per rank "
+        f"{json.dumps([[h['bytes'] for h in r['history']] for r in runs])}; "
+        f"routing agreement without replay "
+        f"{json.dumps([r['agree'] for r in runs])}; rank seconds "
+        f"{json.dumps([r['s'] for r in runs])}")
+    ev = r0["eval"]["loss"]
+    diff = abs(ev["auto"]["loss"] - ev["off"]["loss"])
+    floor = abs(ev["off32"]["loss"] - ev["off"]["loss"])
+    bound_ = max(2 * floor, EVAL_LOSS_RTOL * abs(ev["off"]["loss"]))
+    record_gate("phase 20 eval loss", diff / bound_)
+    launches = [r["eval"]["launches"].get("flash_attention") for r in runs]
+    want_n = MP_DEPTH if dev.type == "cuda" else 0
+    log(f"[20] sharded evaluation loss (no_grad, the second pod rank's "
+        f"flash_attention at q_offset {SEQ_LEN // SEQ_MESH[0]}): kernels "
+        f"{ev['auto']['loss']}, plain {ev['off']['loss']}, plain in float32 "
+        f"{ev['off32']['loss']}; |kernels - plain| {diff}, bound {bound_}; "
+        f"ms {json.dumps({k: v['ms'] for k, v in ev.items()})}; "
+        f"flash_attention launches per rank {launches} (one a layer: "
+        f"{want_n})")
+    if not diff <= bound_:
+        failed.append(f"(20) evaluation loss {ev}")
+    if launches != [want_n] * len(runs):
+        failed.append(f"(20) flash_attention launched {launches}")
+    secs = seq["ref_s"] + max(r["s"] for r in runs)
+    log(f"[20] phase 20: {secs}s (budget 45 s; the unsharded runs "
+        f"{seq['ref_s']}s, the ranks' part {max(r['s'] for r in runs)}s, "
+        f"inside phase 18's spawn; {time.perf_counter() - t_seq}s from its "
+        f"start to its gates, phase 18's ranks included)")
+    return {"failed": failed, "eval_launches": sum(launches), "worst": worst,
+            "grad_worst": gworst[0], "history": r0["history"],
+            "reference": seq["history"], "s": secs}
 
 
 def model_parallel(dev, src, raise_on_fail: bool = True) -> dict:
@@ -3159,8 +3431,20 @@ def model_parallel(dev, src, raise_on_fail: bool = True) -> dict:
         f"{ref['peak_gb']} GB; {t_ref}s; in float32 "
         f"{json.dumps(ref32['history'])}, "
         f"{time.perf_counter() - t_phase - t_ref}s")
+    seq = seq32 = None
+    if SEQ_PHASE:
+        t_seq = time.perf_counter()
+        scfg = seq_config()
+        seq = seq_reference(dev, scfg)
+        seq32 = seq_reference(dev, scfg, seq["routes"], widen=True)
+        seq["ref_s"] = time.perf_counter() - t_seq
+        log(f"[20] {scfg.name} at depth {MP_DEPTH}, {SEQ_BATCH} x {SEQ_LEN} "
+            f"tokens a step, unsharded: {json.dumps(seq['history'])}; in "
+            f"float32 {json.dumps(seq32['history'])}; {seq['ref_s']}s")
     with tempfile.TemporaryDirectory() as tmp:
         torch.save(ref["routes"], Path(tmp) / "routes.pt")
+        if SEQ_PHASE:
+            torch.save(seq["routes"], Path(tmp) / "seq_routes.pt")
         t0 = time.perf_counter()
         try:
             secs = multihost.spawn(model_parallel_rank, 4,
@@ -3178,7 +3462,10 @@ def model_parallel(dev, src, raise_on_fail: bool = True) -> dict:
         if ranks:
             saved = ckpt.restore(Path(tmp) / "ckpt", MP_STEPS,
                                  ref["params"])
-    res: dict = {"spawn_s": secs, "eval_launches": 0}
+            if SEQ_PHASE:
+                seq["sharded_grads"] = torch.load(Path(tmp) / "seq_grads.pt")
+    res: dict = {"spawn_s": secs, "eval_launches": 0,
+                 "seq_eval_launches": 0}
     if ranks:
         r0 = ranks[0]
         # (a) the steps
@@ -3283,7 +3570,11 @@ def model_parallel(dev, src, raise_on_fail: bool = True) -> dict:
         res.update(ranks=[{k: r[k] for k in ("history", "peak_gb", "agree")}
                           for r in ranks], reference=ref["history"],
                    worst=worst, param_worst=pworst[0])
-    del ref, ref32
+    if SEQ_PHASE:
+        res["seq"] = seq_gates(dev, seq, seq32, ranks, t_seq)
+        res["seq_eval_launches"] = res["seq"].get("eval_launches", 0)
+        failed += res["seq"]["failed"]
+    del ref, ref32, seq, seq32
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     secs = time.perf_counter() - t_phase
@@ -3294,6 +3585,92 @@ def model_parallel(dev, src, raise_on_fail: bool = True) -> dict:
         for f in failed:
             log(f"    gate failed: {f}")
     return res
+
+
+# Phase 21: the dry run (``repro_torch.launch.dryrun``), each cell a
+# subprocess (the cells and the one-device step in parallel, on the
+# host's cores: the dry run traces fake tensors and never touches the
+# card): gemma2-2b train_4k on the multi-pod mesh (512 fake ranks, the
+# sequence over pod) and mamba2-370m decode_32k on the single mesh (the
+# JAX test's cell), each record ok with FLOPs, and their roofline rows on
+# the H100's peaks; ungated, the dry run's temp bytes of phase 17's
+# one-device gemma2-2b step beside the peak phase 17 measured.
+DRY_CELLS = (("gemma2-2b", "train_4k", "multi"),
+             ("mamba2-370m", "decode_32k", "single"))
+DRY_ONE = ("gemma2-2b", PROMPT, 1)   # phase 17's first TRAIN_RUNS entry
+DRY_SMOKE = False                    # the one-device step's smoke config
+DRY_LIMIT_S = 150.0
+
+
+def dry_run(dev, src, peak17_gb: float | None = None,
+            raise_on_fail: bool = True) -> dict:
+    """Phase 21: ``python -m repro_torch.launch.dryrun`` on DRY_CELLS and
+    on DRY_ONE's one-device step, subprocesses started together and
+    joined within DRY_LIMIT_S (killed past it); every record ok with
+    ``scaled_flops > 0``. Prints the records, their roofline rows and
+    the one-device step's temp bytes beside ``peak17_gb``."""
+    import tempfile
+
+    from repro_torch.bench import roofline
+
+    t_phase = time.perf_counter()
+    failed: list[str] = []
+    env = dict(os.environ, PYTHONPATH=str(src))
+    out: dict = {"cells": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        cells_dir, one_dir = Path(tmp) / "cells", Path(tmp) / "one"
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun"]
+        arch, seq, batch = DRY_ONE
+        argvs = [cmd + ["--arch", a, "--shape", sh, "--mesh", m, "--out",
+                        str(cells_dir)] for a, sh, m in DRY_CELLS]
+        argvs.append(cmd + ["--arch", arch, "--one-device", str(seq),
+                            str(batch), "--out", str(one_dir)]
+                     + (["--smoke"] if DRY_SMOKE else []))
+        procs = [subprocess.Popen(a, env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for a in argvs]
+        for p in procs:
+            left = max(1.0, t_phase + DRY_LIMIT_S - time.perf_counter())
+            try:
+                stdout, stderr = p.communicate(timeout=left)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                stdout, stderr = p.communicate()
+                failed.append(f"{p.args[3:9]} ran past {DRY_LIMIT_S} s")
+            if p.returncode != 0:
+                failed.append(f"{p.args[3:9]} exited {p.returncode}: "
+                              f"{stderr[-1500:]}")
+        for a, sh, m in DRY_CELLS:
+            f = cells_dir / f"{a}_{sh}_{m}.json"
+            rec = json.loads(f.read_text()) if f.exists() else {"ok": False}
+            out["cells"][f.stem] = rec
+            ok = bool(rec.get("ok")) and rec.get("scaled_flops", 0) > 0
+            record_gate(f"phase 21 {f.stem}", 0.0 if ok else math.inf)
+            log(f"[21] {f.stem}: " + json.dumps(
+                {k: v for k, v in rec.items() if k != "traceback"}))
+            if not ok:
+                failed.append(f"{f.stem}: {rec.get('error', 'no record')}")
+        for row in roofline.dryrun_rows(cells_dir):
+            log(f"[21] {row[0]}: {row[2]} (trace {row[1] / 1e6}s)")
+        f = one_dir / f"{arch}_one_device_{seq}x{batch}.json"
+        one = json.loads(f.read_text()) if f.exists() else {"ok": False}
+        out["one_device"] = one
+        log(f"[21] {arch}'s one-device train step, {batch} x {seq} tokens "
+            f"(phase 17's; ungated): dry-run temp bytes "
+            f"{one.get('temp_size_in_bytes')} and arguments "
+            f"{one.get('argument_size_in_bytes')} (peak "
+            f"{(one['temp_size_in_bytes'] + one['argument_size_in_bytes']) / 1e9 if one.get('ok') else None}"
+            f" GB) beside phase 17's torch.cuda.max_memory_allocated "
+            f"{peak17_gb} GB; trace {one.get('trace_s')}s")
+    secs = time.perf_counter() - t_phase
+    out["s"] = secs
+    log(f"[21] phase 21: {secs}s (budget 40 s)")
+    if failed:
+        if raise_on_fail:
+            raise AssertionError("phase 21: " + "; ".join(failed))
+        for f in failed:
+            log(f"    gate failed: {f}")
+    return out
 
 
 SERVE_MP_ARCH = "gemma2-2b"
@@ -3864,7 +4241,7 @@ def main(argv=None) -> int:
                                  "CUDA card (see the module's docstring).")
     ap.add_argument("--gates", nargs="*", type=int, metavar="PHASE",
                     help="run phase 1 and the gates of phases 2, 3, 5, 6, "
-                         "7, 9, 11 and 15 (or of the phases named, 16-19 "
+                         "7, 9, 11 and 15 (or of the phases named, 16-21 "
                          "among them), recording "
                          "every gate instead of stopping at the first that "
                          "fails; the last line is the gates' worst "
@@ -3976,10 +4353,12 @@ def main(argv=None) -> int:
             zoo_models(dev, None, raise_on_fail=False)
         if 17 in phases:
             training(dev, raise_on_fail=False)
-        if 18 in phases:
+        if phases & {18, 20}:
             model_parallel(dev, src, raise_on_fail=False)
         if 19 in phases:
             sharded_serving(dev, src, raise_on_fail=False)
+        if 21 in phases:
+            dry_run(dev, src, raise_on_fail=False)
         print(json.dumps({"gates": GATES}), flush=True)
         return 0
 
@@ -4307,6 +4686,9 @@ def main(argv=None) -> int:
 
     # --------------------------------------------------------------- 19
     served_mp = sharded_serving(dev, src)
+
+    # --------------------------------------------------------------- 21
+    dry_run(dev, src, trained["train"]["gemma2-2b"]["peak_gb"])
     check_imports()
 
     # ----------------------------------------------------------- output
@@ -4348,7 +4730,8 @@ def main(argv=None) -> int:
             "training_eval_launches": {
                 arch: e["launches"][name]
                 for arch, e in trained["eval"].items()},
-            **({"sharded_eval_launches": parallel["eval_launches"]}
+            **({"sharded_eval_launches": parallel["eval_launches"],
+                "sharded_seq_eval_launches": parallel["seq_eval_launches"]}
                if name == "flash_attention" else {}),
             "sharded_serve_launches": served_mp["launches"][name],
             **a})

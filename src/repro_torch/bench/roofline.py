@@ -12,23 +12,93 @@ the measured kernel-vs-plain speedup. On the CPU there is no kernel:
 both legs run the plain version, and their fractions are of the card's
 peaks all the same. ``smoke=True`` shrinks the measured sweep.
 
-Part 2 — the dry-run cost analysis of the JAX package's models is not
-ported yet (ROADMAP queue 1 item 15); the module emits the
-``roofline/dryrun_missing`` row, as the JAX module does when it finds no
-dry-run records.
+Part 2 — the dry-run records (``repro_torch.launch.dryrun``), when
+present in ``DRYRUN_DIR``, one row per (arch x shape x mesh) on the
+card's peaks (``repro_torch.device``):
+    compute term    = scaled_flops / bf16 tensor-core rate
+    memory term     = scaled_io_bytes / device-memory rate
+    collective term = collective bytes / NVLink rate (published)
+(the records store PER-RANK values). Also MODEL_FLOPS = 6 N(_active) D
+for a train step, 2 N D for a prefill, 2 N B for a decode step, a rank's
+share of it, and the usefulness ratio. Without the directory the module
+emits the ``roofline/dryrun_missing`` row, as the JAX module does; it
+never reads the JAX package's records (TPU compiles).
 """
 from __future__ import annotations
+
+import json
+from pathlib import Path
 
 import numpy as np
 
 from repro_torch.bench.common import Row, timed
 from repro_torch.core import distributions as dists, queueing
 from repro_torch.core.scenario import Scenario
-from repro_torch.device import F32_OPS_PER_S, HBM_BYTES_PER_S
+from repro_torch.configs import base as cfgbase
+from repro_torch.device import (BF16_OPS_PER_S, F32_OPS_PER_S,
+                                HBM_BYTES_PER_S, NVLINK_BYTES_PER_S)
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.cell_update.ops import cell_update_costs
 
 RIDGE = F32_OPS_PER_S / HBM_BYTES_PER_S  # FLOP/byte: compute overtakes memory
+DRYRUN_DIR = Path(__file__).resolve().parents[3] / "experiments" / \
+    "dryrun_torch"
+
+
+def analyze_record(rec: dict) -> dict | None:
+    """The roofline terms of one dry-run record on the card's peaks
+    (``benchmarks/roofline.py``'s ``analyze_record``); None for a failed
+    cell or one without the counts."""
+    if not rec.get("ok") or "scaled_flops" not in rec or \
+            rec.get("shape") not in cfgbase.SHAPES:
+        return None
+    cfg = cfgbase.get_config(rec["arch"])
+    shape = cfgbase.SHAPES[rec["shape"]]
+    devices = rec["devices"]
+    t_compute = rec["scaled_flops"] / BF16_OPS_PER_S
+    t_memory = rec["scaled_io_bytes"] / HBM_BYTES_PER_S
+    coll = sum(rec.get("collective_bytes", {}).values())
+    t_coll = coll / NVLINK_BYTES_PER_S
+    dominant = max(("compute", t_compute), ("memory", t_memory),
+                   ("collective", t_coll), key=lambda x: x[1])[0]
+    n_params = (cfg.active_param_count if cfg.moe else cfg.param_count)
+    if shape.kind == "train":
+        model_flops = 6 * n_params * shape.global_batch * shape.seq_len
+    elif shape.kind == "prefill":
+        model_flops = 2 * n_params * shape.global_batch * shape.seq_len
+    else:  # decode: one token per sequence
+        model_flops = 2 * n_params * shape.global_batch
+    model_flops_dev = model_flops / devices
+    return {
+        "t_compute": t_compute, "t_memory": t_memory, "t_coll": t_coll,
+        "dominant": dominant,
+        "useful_ratio": model_flops_dev / max(rec["scaled_flops"], 1.0),
+        "model_flops_per_dev": model_flops_dev,
+        "hbm_bytes_per_dev": rec.get("temp_size_in_bytes", 0),
+    }
+
+
+def dryrun_rows(directory: Path | None = None) -> list[Row]:
+    """One row per record of ``directory`` (default ``DRYRUN_DIR``); the
+    ``roofline/dryrun_missing`` row where it does not exist."""
+    directory = DRYRUN_DIR if directory is None else Path(directory)
+    if not directory.exists():
+        return [("roofline/dryrun_missing", 0.0,
+                 "run repro_torch.launch.dryrun first")]
+    rows: list[Row] = []
+    for f in sorted(directory.glob("*.json")):
+        rec = json.loads(f.read_text())
+        a = analyze_record(rec)
+        if a is None:
+            rows.append((f"roofline/{f.stem}", 0.0,
+                         f"SKIP({rec.get('error', 'no analysis')})"))
+            continue
+        rows.append((
+            f"roofline/{f.stem}", rec.get("trace_s", 0) * 1e6,
+            f"compute_s={a['t_compute']:.3e};memory_s={a['t_memory']:.3e};"
+            f"collective_s={a['t_coll']:.3e};dominant={a['dominant']};"
+            f"useful={a['useful_ratio']:.2f}"))
+    return rows
 
 
 def _cell_update_rows(smoke: bool, device) -> list[Row]:
@@ -79,7 +149,4 @@ def _cell_update_rows(smoke: bool, device) -> list[Row]:
 
 
 def run(smoke: bool = False, device="cuda") -> list[Row]:
-    return _cell_update_rows(smoke, device) + [
-        ("roofline/dryrun_missing", 0.0,
-         "the dry-run cost analysis is not ported yet (ROADMAP queue 1 "
-         "item 15)")]
+    return _cell_update_rows(smoke, device) + dryrun_rows()

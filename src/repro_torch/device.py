@@ -13,6 +13,11 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
 TF32_OPS_PER_S = 495e12
+# NVLink 4 of the H100 SXM, as published (NVIDIA data sheet: 900 GB/s a
+# GPU, 18 links, both directions together). Not measured: the machine
+# the port runs on has one card. The dry run's collective term is taken
+# against it.
+NVLINK_BYTES_PER_S = 900e9
 
 
 def resolve_device(device="cuda") -> torch.device:

@@ -45,6 +45,7 @@ from __future__ import annotations
 import collections
 from typing import Any, Mapping
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
@@ -70,6 +71,8 @@ _GROUPS: dict = {}
 # many meshes and axes name it (gloo names a locally synchronised group
 # by its ranks, so a second group of the same ranks would not rendezvous)
 _BY_MEMBERS: dict = {}
+# id(mesh) -> (mesh, its ranks as a numpy array): ``mesh_grid``
+_GRIDS: dict = {}
 
 
 # ---------------------------------------------------------------------------
@@ -102,6 +105,16 @@ def flat_index(coords: Mapping[str, int], sizes: Mapping[str, int],
     return idx
 
 
+def mesh_grid(mesh: DeviceMesh) -> np.ndarray:
+    """The mesh's global ranks as a numpy array of its shape, read once a
+    mesh (a ``DeviceMesh`` builds ``.mesh`` anew, under a
+    ``FakeTensorMode`` as a fake tensor, which holds no values)."""
+    hit = _GRIDS.get(id(mesh))
+    if hit is None or hit[0] is not mesh:
+        hit = _GRIDS[id(mesh)] = (mesh, np.asarray(mesh.mesh.tolist()))
+    return hit[1]
+
+
 def axes_group(mesh: DeviceMesh, axes) -> tuple[Any, list[int],
                                                  list[int]]:
     """(group, members, order) of the ranks that share this rank's
@@ -112,19 +125,20 @@ def axes_group(mesh: DeviceMesh, axes) -> tuple[Any, list[int],
     ``use_local_synchronization``: only their members take part. A mesh
     over some of the ranks (a ``DeviceMesh`` that leaves ranks out) is
     made after every group over more ranks: gloo's rendezvous of a wider
-    group made after it hangs (torch 2.13)."""
+    group made after it hangs (torch 2.13). The mesh's geometry is read
+    on the host (numpy), with no tensor operation, so that it runs under
+    a ``FakeTensorMode`` too (``repro_torch.launch.dryrun``)."""
     axes = tuple(axes)
     names = tuple(mesh.mesh_dim_names)
-    key = (names, tuple(mesh.mesh.shape), tuple(mesh.mesh.flatten()
-                                                .tolist()), axes)
+    grid = mesh_grid(mesh)
+    key = (names, grid.shape, tuple(grid.reshape(-1).tolist()), axes)
     if key in _GROUPS:
         return _GROUPS[key]
     coords = mesh_coords(mesh)
-    grid = mesh.mesh
     index = tuple(slice(None) if a in axes else coords[a] for a in names)
     sub = grid[index]                       # the axes' dims, mesh order
     kept = [a for a in names if a in axes]
-    sub = sub.permute([kept.index(a) for a in axes]).reshape(-1)
+    sub = sub.transpose([kept.index(a) for a in axes]).reshape(-1)
     by_flat = [int(r) for r in sub.tolist()]   # rank at flat index f
     members = sorted(by_flat)
     order = [members.index(r) for r in by_flat]
@@ -144,6 +158,7 @@ def forget_groups() -> None:
     they belong to is being destroyed)."""
     _GROUPS.clear()
     _BY_MEMBERS.clear()
+    _GRIDS.clear()
     _GLOO_CUDA.clear()
 
 

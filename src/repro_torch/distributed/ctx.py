@@ -13,17 +13,20 @@ expert-parallel MoE, ``repro_torch.models.lm._run_moe``). So
 ``constrain`` is the identity, as the JAX function is in meaning: there
 it is only a layout hint to XLA's partitioner.
 
-What the port runs under a ctx: every layout of ``make_layout`` in
-serving — a prefill with the sequence split over ``ctx.seq`` (each rank
+What the port runs under a ctx: every layout of ``make_layout``. In
+serving, a prefill with the sequence split over ``ctx.seq`` (each rank
 runs its block of rows; attention gathers K and V over ``seq``) or the
-batch split, a decode with the KV cache's slots split over
+batch split, and a decode with the KV cache's slots split over
 ``ctx.kv_seq`` (each rank attends over its own slots and the ranks
-combine their partial softmaxes, ``repro_torch.distributed.tp``) — and
-the training layouts whose ``seq`` is unset (the batch over
-``ctx.batch``, experts over ``ctx.ep_axes``). Training under a
-sequence-sharded layout (the fsdp recipe's train layout with two pods)
-is ROADMAP queue 1 item 14g; ``check_train`` raises for it, so the loss
-never gives a silently wrong answer.
+combine their partial softmaxes, ``repro_torch.distributed.tp``). In
+training, the batch over ``ctx.batch``, experts over ``ctx.ep_axes``
+and, in the fsdp recipe's train layout with two pods, the sequence over
+``ctx.seq``: each rank runs its block of positions of its rows, and
+attention gathers K and V over ``seq`` with an autograd gather, so the
+gradients that other ranks' queries give a rank's keys and values come
+back to it (``repro_torch.models.attention``). Only attention layers
+take a split sequence: no layout of ``make_layout`` splits the sequence
+of a recurrent or MLA model, and ``check_seq`` raises for one.
 """
 from __future__ import annotations
 
@@ -33,9 +36,6 @@ from typing import Any, Callable
 from torch.distributed.device_mesh import DeviceMesh
 
 AxisSpec = tuple[str, ...] | None  # mesh axes for one logical dim
-
-SEQ_TRAINING_ITEM = ("ROADMAP queue 1 item 14g (training under a "
-                     "sequence-sharded layout)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,14 +77,15 @@ def kv_axes(ctx: ShardCtx | None) -> tuple[str, ...]:
     return (_norm(ctx.kv_seq) or ()) if ctx is not None else ()
 
 
-def check_train(ctx: ShardCtx | None) -> None:
-    """Raise where the ctx shards the sequence: the training loss runs
-    only batch-split layouts."""
-    if seq_axes(ctx):
+def check_seq(ctx: ShardCtx | None, kind: str) -> None:
+    """Raise where the ctx splits the sequence of a layer that is not an
+    attention layer (``kind``: the block's mixer): those run a recurrence
+    or MLA over the whole sequence, and no layout of ``make_layout``
+    splits their sequence (their archs take the tp recipe)."""
+    if seq_axes(ctx) and kind not in ("global", "local"):
         raise NotImplementedError(
-            f"a ShardCtx with seq={ctx.seq} in training: the loss runs only "
-            f"batch-split layouts; training under a sequence-sharded layout "
-            f"is {SEQ_TRAINING_ITEM}")
+            f"a ShardCtx with seq={ctx.seq} over a {kind!r} layer: only "
+            f"attention layers take a split sequence")
 
 
 def constrain(x: Any, ctx: ShardCtx | None, *dims: AxisSpec) -> Any:

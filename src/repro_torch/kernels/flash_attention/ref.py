@@ -26,17 +26,21 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     The queries are the rows at positions ``q_offset .. q_offset + Sq -
     1`` and the keys positions ``0 .. Sk - 1``, with ``Sk = q_offset +
     Sq``: a block of rows of a sequence-sharded prefill over its causal
-    prefix (``q_offset=0``: the whole sequence). Scores in float32,
-    scaled by ``hd**-0.5``, soft-capped, masked, then a float32 softmax
-    whose probabilities are rounded to ``v.dtype`` before the value
-    product, as in the reference."""
+    prefix (``q_offset=0``: the whole sequence). Scores in float32
+    (float64 for float64 inputs, which ``torch.autograd.gradcheck``
+    takes), scaled by ``hd**-0.5``, soft-capped, masked, then a softmax
+    in that type whose probabilities are rounded to ``v.dtype`` before
+    the value product, as in the reference. Differentiable: the in-place
+    mask acts on the scaled (or soft-capped) scores, which no backward
+    reads."""
     b, s, h, hd = q.shape
     kv = k.shape[2]
     check_offset(s, k.shape[1], q_offset)
     g = h // kv
     qg = q.reshape(b, s, kv, g, hd)
-    scores = torch.einsum("bqkgd,bskd->bkgqs", qg.to(torch.float32),
-                          k.to(torch.float32)) * (hd ** -0.5)
+    acc = torch.promote_types(q.dtype, torch.float32)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg.to(acc),
+                          k.to(acc)) * (hd ** -0.5)
     if softcap is not None:
         scores = softcap * torch.tanh(scores / softcap)
     i = torch.arange(q_offset, q_offset + s, device=q.device)[:, None]

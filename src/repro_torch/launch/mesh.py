@@ -77,10 +77,15 @@ def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
     return _lm_mesh(shape, axes)
 
 
-def make_test_mesh(n_data: int = 2, n_model: int = 4) -> DeviceMesh:
+def make_test_mesh(n_data: int = 2, n_model: int = 4,
+                   n_pod: int | None = None) -> DeviceMesh:
     """Small mesh for tests and ``chip_smoke.py`` (``n_data x n_model``
-    ranks: spawned processes, on the CPU or sharing a card)."""
-    return _lm_mesh((n_data, n_model), ("data", "model"))
+    ranks: spawned processes, on the CPU or sharing a card); with
+    ``n_pod``, ``n_pod x n_data x n_model`` ranks over ``("pod", "data",
+    "model")``, the multi-pod mesh's axes."""
+    if n_pod is None:
+        return _lm_mesh((n_data, n_model), ("data", "model"))
+    return _lm_mesh((n_pod, n_data, n_model), ("pod", "data", "model"))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -96,16 +96,21 @@ def attention(p: Attention, x: torch.Tensor, positions: torch.Tensor, *,
               qk_norm: bool = False, eps: float = 1e-6,
               kernel: str = "auto", return_kv: bool = False,
               ctx: ShardCtx | None = None):
-    """Causal self-attention over a full sequence (prefill). Head counts
-    and width are read off the projections' shapes. Under a ctx whose
-    ``seq`` splits the sequence, ``x`` is this rank's block of rows and
-    the K and V returned are the whole sequence's."""
+    """Causal self-attention over a full sequence (prefill, and the
+    training loss). Head counts and width are read off the projections'
+    shapes. Under a ctx whose ``seq`` splits the sequence, ``x`` is this
+    rank's block of rows at the global ``positions`` and the K and V
+    returned are the whole sequence's: they are gathered over ``seq``
+    with ``collectives.gather``, whose backward sums over the ranks the
+    gradients that every rank's queries give each block of keys and
+    values and scatters each rank its own (a gather without autograd
+    would drop all but the rank's own queries' share)."""
     q, k, v = _project_qkv(p, x, positions, rope_theta, qk_norm, eps)
     w = window if kind == "local" else None
     axes, offset = seq_axes(ctx), 0
     if axes:
-        k = collectives.all_gather(k, ctx.mesh, axes, 1)
-        v = collectives.all_gather(v, ctx.mesh, axes, 1)
+        k = collectives.gather(k, ctx.mesh, axes, 1)
+        v = collectives.gather(v, ctx.mesh, axes, 1)
         offset = tp.axes_index(ctx.mesh, axes) * q.shape[1]
         end = offset + q.shape[1]
         out = fa_ops.flash_attention(

@@ -49,7 +49,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import collectives, sharding, tp
-from repro_torch.distributed.ctx import ShardCtx, batch_axes, seq_axes
+from repro_torch.distributed.ctx import (ShardCtx, batch_axes, check_seq,
+                                        seq_axes)
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, lm, mla, rglru, ssd
 from repro_torch.models.layers import rmsnorm
@@ -191,11 +192,7 @@ def block_prefill(p: lm.Block, x: torch.Tensor, cfg: ModelConfig,
                   kernel: str, ctx: ShardCtx | None = None
                   ) -> tuple[torch.Tensor, dict]:
     h = rmsnorm(p.pre_norm, x, cfg.norm_eps)
-    if seq_axes(ctx) and p.kind not in ("global", "local"):
-        # no layout of make_layout splits the sequence of these (their
-        # archs serve under the tp recipe, whose prefill splits the batch)
-        raise NotImplementedError(f"a sequence-sharded prefill of a "
-                                  f"{p.kind!r} layer")
+    check_seq(ctx, p.kind)
     if p.kind == "rec":
         h, cache = rglru.rglru_block(p.mixer, h, cfg.rglru, kernel=kernel,
                                      return_state=True)
@@ -237,17 +234,11 @@ def prefill(model, tokens: torch.Tensor, max_len: int, *,
     with lm._using(use, SERVE_PARTS):
         x = lm.embed(model, tokens, patches)
         b, s = x.shape[:2]
-        start, axes = 0, seq_axes(ctx)
-        if axes:  # this rank's block of the (patches + text) sequence
-            n = tp.axes_size(ctx.mesh, axes)
-            if s % n:
-                raise ValueError(f"a sequence of {s} positions does not "
-                                 f"split over the {n} ranks of {axes}")
-            s //= n
-            start = tp.axes_index(ctx.mesh, axes) * s
-            x = x[:, start:start + s].contiguous()
-        positions = torch.arange(start, start + s, dtype=torch.int32,
+        positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)
+        # this rank's block of the (patches + text) sequence
+        x, positions = lm.seq_block(ctx, x, positions)
+        x = x.contiguous()
         cache = []
         for i, p in enumerate(model.blocks):
             with lm._using(use, [f"blocks.{i}"]):
@@ -255,8 +246,10 @@ def prefill(model, tokens: torch.Tensor, max_len: int, *,
                                      ctx)
             cache.append(c)
         x_last = x[:, -1]
+        axes = seq_axes(ctx)
         if axes:  # the last position is the last rank's
-            x_last = collectives.broadcast(x_last, ctx.mesh, axes, n - 1)
+            x_last = collectives.broadcast(x_last, ctx.mesh, axes,
+                                           tp.axes_size(ctx.mesh, axes) - 1)
         logits = _logits(model, x_last)
     if ctx is not None:
         cache = decode_cache(cfg, ctx, cache, b * _batch_shards(ctx))

@@ -39,10 +39,11 @@ def truncated_normal(shape, scale: float, generator: torch.Generator,
     float32 on the generator's device and cast to ``dtype`` (as
     ``jax.random.truncated_normal(key, -2, 2, shape, f32) * scale``)."""
     dev = generator.device
+    if dev.type == "meta":  # ``MetaGenerator``: shapes only, nothing drawn
+        return torch.empty(shape, dtype=dtype, device=dev)
     lo, hi = (0.5 * (1.0 + math.erf(b / math.sqrt(2.0))) for b in (-2.0, 2.0))
-    # a generator on the meta device (``MetaGenerator``) builds shapes only
-    x = torch.rand(shape, generator=None if dev.type == "meta" else generator,
-                   device=dev, dtype=torch.float32)
+    x = torch.rand(shape, generator=generator, device=dev,
+                   dtype=torch.float32)
     # in place, one float32 buffer: a 256,000 x 8,192 head or a (256,
     # 7168, 2048) expert stack is drawn beside a model that nearly fills
     # the card

@@ -11,11 +11,13 @@ registers. A model is a stack of residual blocks described by
     "mla_moe"     DeepSeek MLA        mixture-of-experts
     "rec"         RG-LRU recurrence   dense
     "ssd"         Mamba-2 SSD         (none)
-Under a ``ShardCtx`` (``repro_torch.distributed``, ROADMAP queue 1 item
-14e) each rank runs the stack on its shard of the batch (in serving also
-its block of the sequence, item 14f: ``repro_torch.models.decode``), and
-the MoE layers are expert-parallel: ``_run_moe`` is the JAX package's
-``shard_map`` path written out in collectives.
+Under a ``ShardCtx`` (``repro_torch.distributed``) each rank runs the
+stack on its shard of the batch and, where ``ctx.seq`` splits the
+sequence (serving: ``repro_torch.models.decode``; training: the fsdp
+recipe's train layout with two pods), on its block of positions of
+those rows, attention gathering K and V over ``seq``; the MoE layers
+are expert-parallel: ``_run_moe`` is the JAX package's ``shard_map``
+path written out in collectives.
 
 ``LM`` is an ``nn.Module``: the embedding (``(K, V, D)``, one table per
 codebook, for audio), a ``ModuleList`` of blocks in layer order
@@ -46,8 +48,8 @@ from torch import nn
 from torch.utils import checkpoint as ckpt_utils
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed import collectives
-from repro_torch.distributed.ctx import (ShardCtx, batch_axes, check_train,
+from repro_torch.distributed import collectives, tp
+from repro_torch.distributed.ctx import (ShardCtx, batch_axes, check_seq,
                                         seq_axes)
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, mla, moe, rglru, ssd
@@ -261,7 +263,9 @@ def _run_moe(p: moe.MoE, x: torch.Tensor, cfg: ModelConfig,
     (``_ep_slice``) and the full router. The tokens are all-gathered over
     the EP axes that shard them (``gather_axes``: those of ``ctx.batch``
     along the rows, those of ``ctx.seq`` — a sequence-sharded prefill —
-    along the sequence); the partial outputs of the local experts are
+    along the sequence; the train layout with two pods splits the
+    sequence over ``pod``, off the EP axes, so each pod rank's group
+    routes its own block); the partial outputs of the local experts are
     summed over the EP axes that replicate the tokens (``psum_axes``) and
     reduce-scattered back over the others, in
     float32, rounded once to the activations' dtype after (as the
@@ -389,7 +393,9 @@ def block_forward(p: Block, x: torch.Tensor, cfg: ModelConfig,
                   ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """One residual block over a full sequence, no cache. Returns (x,
     aux loss or None). Under a ctx, ``x`` is this rank's shard of the
-    batch and only the MoE talks to other ranks."""
+    batch (and, under ``ctx.seq``, its block of positions, attention
+    gathering K and V over ``seq``); the MoE talks to other ranks too."""
+    check_seq(ctx, p.kind)
     h = rmsnorm(p.pre_norm, x, cfg.norm_eps)
     if p.kind == "rec":
         h = rglru.rglru_block(p.mixer, h, cfg.rglru, kernel=kernel)
@@ -399,7 +405,7 @@ def block_forward(p: Block, x: torch.Tensor, cfg: ModelConfig,
         h = mla.mla_attention(p.mixer, h, positions, cfg=cfg.mla,
                               rope_theta=cfg.rope_theta, eps=cfg.norm_eps)
     else:
-        h = attn.attention(p.mixer, h, positions,
+        h = attn.attention(p.mixer, h, positions, ctx=ctx,
                            **_attn_kw(cfg, p.kind, kernel))
     if cfg.post_norm:
         h = rmsnorm(p.post_mixer_norm, h, cfg.norm_eps)
@@ -422,12 +428,12 @@ def forward_hidden(model: LM, x: torch.Tensor, positions: torch.Tensor, *,
     (``torch.utils.checkpoint``), as ``jax.checkpoint`` does over the JAX
     package's scanned superblocks under ``remat_policy="full"`` (the
     policy of every config; ``"dots"`` raises); ``cfg.prefix``/``suffix``
-    are not. Under a ctx (a batch-split layout; ``seq`` set raises) ``x``
-    is this rank's shard of the batch. ``use``: see
+    are not. Under a ctx ``x`` is this rank's shard of the batch and,
+    under ``ctx.seq``, its block of positions (``positions`` the global
+    ones). ``use``: see
     ``loss_fn``; each group of blocks (a repeat, or a block of the prefix
     or suffix) is gathered inside its forward, and so inside its
     recompute too."""
-    check_train(ctx)
     cfg = model.cfg
     blocks = list(model.blocks)
     n_pre, n_pat = len(cfg.prefix), len(cfg.pattern)
@@ -514,6 +520,23 @@ def embed_inputs(model: LM, batch: dict[str, torch.Tensor]):
     return x, positions, tgt, mask
 
 
+def seq_block(ctx: ShardCtx | None, *ts: torch.Tensor
+              ) -> tuple[torch.Tensor, ...]:
+    """This rank's block of positions (dim 1) of each of ``ts`` under
+    ``ctx.seq``, the block of index i over ``seq`` (major to minor) the
+    i-th; the tensors as given without a split sequence. The length must
+    divide by the ranks of ``seq``."""
+    axes = seq_axes(ctx)
+    if not axes:
+        return ts
+    n, s = tp.axes_size(ctx.mesh, axes), ts[0].shape[1]
+    if s % n:
+        raise ValueError(f"a sequence of {s} positions does not split over "
+                         f"the {n} ranks of {axes}")
+    start = tp.axes_index(ctx.mesh, axes) * (s // n)
+    return tuple(t.narrow(1, start, s // n) for t in ts)
+
+
 class _Shares:
     """Under a ctx, a rank's loss is its SHARE of the global loss: the
     sum of the shares over every rank of the mesh is the loss of the
@@ -521,9 +544,15 @@ class _Shares:
     gradient (the convention of ``repro_torch.distributed.collectives``).
     A cross entropy's share is the rank's sum of per-position losses over
     the global count of valid targets, divided by the number of ranks
-    that hold the same rows (``n_rep``: those along the axes off
-    ``ctx.batch``); an aux loss's share is the EP group's value over the
-    world size (its mean over the groups)."""
+    that hold the same positions of the same rows (``n_rep``: the world
+    over the ranks of ``ctx.batch`` and ``ctx.seq``; ranks along ``seq``
+    hold disjoint positions of the same rows). An aux loss's share is
+    its routing group's value over the world size (its mean over the
+    groups): as in the JAX package's ``_run_moe``, whose every
+    ``shard_map`` instance routes its own block of tokens, a group is
+    the EP ranks that gather one block of rows and, under ``ctx.seq``,
+    of positions (``_run_moe``), and each routes with the capacity of
+    its own block."""
 
     def __init__(self, ctx: ShardCtx):
         self.ctx = ctx
@@ -533,7 +562,7 @@ class _Shares:
         for n in sizes.values():
             self.world *= n
         split = 1
-        for a in batch_axes(ctx):
+        for a in batch_axes(ctx) + seq_axes(ctx):
             split *= sizes[a]
         self.n_rep = self.world // split
 
@@ -575,8 +604,10 @@ def loss_fn(model: LM, batch: dict[str, torch.Tensor], *,
     (``forward_hidden``); ``ShardedModel.loss`` passes it. ``total`` is
     the rank's share of the global loss (``_Shares``) and the metrics
     are the global values, the same on every rank. As in the JAX
-    package, the MoE's capacity and aux loss are each EP group's."""
-    check_train(ctx)
+    package, the MoE's capacity and aux loss are each EP group's. Under
+    ``ctx.seq`` the rows are whole: each rank embeds them (a VLM's
+    patches first) and keeps its block of positions (``seq_block``) of
+    the inputs, targets, mask and global positions."""
     with _using(use, OUTER_PARTS):
         return _loss(model, batch, kernel, ctx, use)
 
@@ -585,7 +616,7 @@ def _loss(model: LM, batch: dict[str, torch.Tensor], kernel: str,
           ctx: ShardCtx | None, use):
     cfg = model.cfg
     shares = _Shares(ctx) if ctx is not None else None
-    x, positions, tgt, mask = embed_inputs(model, batch)
+    x, positions, tgt, mask = seq_block(ctx, *embed_inputs(model, batch))
     h, aux = forward_hidden(model, x, positions, kernel=kernel, ctx=ctx,
                             use=use)
     h = rmsnorm(model.final_norm, h, cfg.norm_eps)
@@ -632,6 +663,10 @@ def _mtp_loss(model: LM, batch: dict[str, torch.Tensor], h: torch.Tensor,
     main trunk's (normed) hidden state at t combined with the embedding
     of t+1 (under a ctx, this rank's share)."""
     cfg = model.cfg
+    if shares and seq_axes(shares.ctx):
+        # the only MTP model (deepseek) takes the tp recipe, whose
+        # layouts never split the sequence
+        raise NotImplementedError("the MTP loss over a split sequence")
     toks = batch["tokens"]                 # (B, S+1)
     p = model.mtp
     emb_next = model.embed.table[toks[:, 1:-1]].to(h.dtype)

@@ -171,7 +171,42 @@ def test_roofline_rows_on_the_cards_peaks():
     assert roofline.RIDGE == device.F32_OPS_PER_S / device.HBM_BYTES_PER_S
     missing = next(r for r in port_rows("roofline")
                    if r[0] == "roofline/dryrun_missing")
-    assert "item 15" in missing[2]
+    assert "repro_torch.launch.dryrun" in missing[2]
+
+
+def test_roofline_rows_of_dry_run_records(tmp_path):
+    """With records (``repro_torch.launch.dryrun``'s), one row per record
+    on the card's peaks, a failed cell's as SKIP; without the directory,
+    the missing row alone."""
+    from repro_torch.bench import roofline
+    from repro_torch import device
+
+    rec = {"arch": "gemma2-2b", "shape": "train_4k", "mesh": "multi",
+           "ok": True, "devices": 512, "trace_s": 2.0,
+           "scaled_flops": 4.0e13, "scaled_io_bytes": 2.0e12,
+           "collective_bytes": {"all-gather": 1.0e10,
+                                "reduce-scatter": 2.0e8}}
+    bad = {"arch": "mamba2-370m", "shape": "decode_32k", "mesh": "single",
+           "ok": False, "error": "RuntimeError: planted"}
+    for r in (rec, bad):
+        (tmp_path / f"{r['arch']}_{r['shape']}_{r['mesh']}.json").write_text(
+            json.dumps(r))
+    rows = {r[0]: r for r in roofline.dryrun_rows(tmp_path)}
+    assert set(rows) == {"roofline/gemma2-2b_train_4k_multi",
+                         "roofline/mamba2-370m_decode_32k_single"}
+    d = dict(kv.split("=", 1) for kv in
+             rows["roofline/gemma2-2b_train_4k_multi"][2].split(";"))
+    assert float(d["compute_s"]) == pytest.approx(
+        4.0e13 / device.BF16_OPS_PER_S, rel=1e-3)
+    assert float(d["memory_s"]) == pytest.approx(
+        2.0e12 / device.HBM_BYTES_PER_S, rel=1e-3)
+    assert float(d["collective_s"]) == pytest.approx(
+        1.02e10 / device.NVLINK_BYTES_PER_S, rel=1e-3)
+    assert d["dominant"] == "memory"
+    assert rows["roofline/mamba2-370m_decode_32k_single"][2] == \
+        "SKIP(RuntimeError: planted)"
+    assert [r[0] for r in roofline.dryrun_rows(tmp_path / "none")] == [
+        "roofline/dryrun_missing"]
 
 
 def test_sweep_engine_sharded_rows_bit_identical():

@@ -905,11 +905,12 @@ def test_plans_equal_jax(model_degree):
 
 
 def test_ctx_with_sequence_sharding_raises(tmp_path):
-    """A sequence-sharded ctx raises in the training loss, naming item
-    14g (training under a sequence-sharded layout); prefill and decode
-    under ``seq`` / ``kv_seq`` ctxs run (sharded serving, item 14f: here
-    on a one-rank world, whose splits are trivial, equal to the one-device
-    path); ``constrain`` is the identity."""
+    """The training loss under a sequence-sharded ctx equals the
+    one-device loss, as do prefill and decode under ``seq`` / ``kv_seq``
+    ctxs (here on a one-rank world, whose splits are trivial); a
+    sequence-sharded ctx raises only over a layer that is not attention
+    (a recurrent model: no layout splits its sequence); ``constrain`` is
+    the identity."""
     import torch.distributed as dist
 
     from repro_torch.distributed import ctx as ctx_mod
@@ -924,8 +925,13 @@ def test_ctx_with_sequence_sharding_raises(tmp_path):
     try:
         mesh = make_test_mesh(1, 1)
         ctx = ShardCtx(mesh=mesh, batch=("data",), seq=("model",))
-        with pytest.raises(NotImplementedError, match="14g"):
-            lm.loss_fn(model, batch, ctx=ctx)
+        got, gm = lm.loss_fn(model, batch, ctx=ctx)
+        want, wm = lm.loss_fn(model, batch)
+        assert torch.equal(got, want) and gm == wm
+        rec = get_smoke_config("mamba2-370m")
+        with pytest.raises(NotImplementedError, match="only attention"):
+            lm.loss_fn(lm.init(torch.Generator("cpu").manual_seed(0), rec),
+                       {"tokens": torch.from_numpy(tokens(rec))}, ctx=ctx)
         prompt = batch["tokens"][:, :SEQ]
         logits, cache = decode.prefill(model, prompt, 2 * SEQ, ctx=ctx)
         want, wcache = decode.prefill(model, prompt, 2 * SEQ)

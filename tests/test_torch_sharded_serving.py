@@ -838,3 +838,47 @@ def test_chip_smoke_phase19_runs_on_the_cpu(monkeypatch, capsys):
     assert len(out["ranks"]) == 4 and sum(out["launches"].values()) == 0
     text = capsys.readouterr().out
     assert "[19] phase 19:" in text and "gate failed" not in text
+
+
+def test_chip_smoke_phase20_runs_on_the_cpu(monkeypatch, capsys):
+    """``chip_smoke.py``'s phase 20 (training under the two-pod layout,
+    inside phase 18's world of four spawned ranks: the unsharded run and
+    its float32 copy, every gate) end to end on the CPU at granite's
+    smoke config and small shapes, phase 18's own settings as its
+    rehearsal takes them (``tests/test_torch_training.py``); the kernels'
+    plain versions stand in for the kernels (no launch expected)."""
+    root = os.path.join(os.path.dirname(__file__), os.pardir)
+    monkeypatch.syspath_prepend(root)   # the spawned ranks import it too
+    import chip_smoke as cs
+
+    for name, value in (("MP_SMOKE", True), ("MP_SEQ", 16),
+                        ("MP_PIPE", (2, 4, 3, 8)), ("MP_HIER_SHAPE", (6, 10)),
+                        ("MP_NORM_RTOL", 2e-3), ("SEQ_LEN", 32)):
+        monkeypatch.setattr(cs, name, value)
+    out = cs.model_parallel(torch.device("cpu"), Path(root).resolve()
+                            / "src")
+    assert out["seq"]["eval_launches"] == 0
+    assert len(out["seq"]["history"]) == cs.SEQ_STEPS
+    text = capsys.readouterr().out
+    assert "[20] phase 20:" in text and "gate failed" not in text
+
+
+def test_chip_smoke_phase21_runs_on_the_cpu(monkeypatch, capsys):
+    """``chip_smoke.py``'s phase 21 (the dry run's subprocesses, its
+    gates and roofline rows) on the CPU: the full-size mamba2-370m
+    ``decode_32k`` cell and gemma2-2b's smoke one-device step."""
+    root = os.path.join(os.path.dirname(__file__), os.pardir)
+    monkeypatch.syspath_prepend(root)
+    import chip_smoke as cs
+
+    monkeypatch.setattr(cs, "DRY_CELLS",
+                        (("mamba2-370m", "decode_32k", "single"),))
+    monkeypatch.setattr(cs, "DRY_ONE", ("gemma2-2b", 64, 1))
+    monkeypatch.setattr(cs, "DRY_SMOKE", True)
+    out = cs.dry_run(torch.device("cpu"), Path(root).resolve() / "src")
+    rec = out["cells"]["mamba2-370m_decode_32k_single"]
+    assert rec["ok"] and rec["devices"] == 256
+    assert out["one_device"]["ok"]
+    text = capsys.readouterr().out
+    assert "[21] roofline/mamba2-370m_decode_32k_single: compute_s=" in text
+    assert "[21] phase 21:" in text and "gate failed" not in text

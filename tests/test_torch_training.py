@@ -646,6 +646,7 @@ def test_chip_smoke_phase18_runs_on_the_cpu(monkeypatch, capsys):
     import chip_smoke as cs
 
     monkeypatch.setattr(cs, "MP_SMOKE", True)
+    monkeypatch.setattr(cs, "SEQ_PHASE", False)   # phase 20's rehearsal
     monkeypatch.setattr(cs, "MP_SEQ", 16)
     monkeypatch.setattr(cs, "MP_PIPE", (2, 4, 3, 8))
     monkeypatch.setattr(cs, "MP_HIER_SHAPE", (6, 10))

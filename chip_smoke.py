@@ -8,7 +8,7 @@
     python3 chip_smoke.py --gates 18   # phases 18 and 20 (model parallel)
     python3 chip_smoke.py --gates 19   # phase 19 alone (sharded serving)
     python3 chip_smoke.py --gates 21   # phase 21 alone (the dry run)
-    python3 chip_smoke.py --faults     # --gates on planted faults F9-F20
+    python3 chip_smoke.py --faults     # --gates on planted faults F9-F22
     python3 chip_smoke.py --faults F12 F13 F14   # only those (+ control)
 
 Phases, each printing its own lines; any failure raises and exits
@@ -20,7 +20,10 @@ nonzero:
      SASS instruction counts (wgmma, TMA, mbarrier, cp.async, mma.sync)
      and the card;
   2. hold the ``hist_accum`` kernel against its plain version: counts
-     must be exactly equal;
+     must be exactly equal, on uniform indices and on every input of
+     ``interop.HIST_ACCUM_CASES`` (binned responses, all in one bin, all
+     skipped, ragged T and C, several clusters along T, 1-8 cells a CTA,
+     100 bins to ``MAX_BINS``, a running histogram, unaligned indices);
   3. hold the ``cell_update`` kernel against its plain version on
      identical injected inputs, for every policy x service model, a
      degraded grid, the timed policies, a heterogeneous (``has_dists``)
@@ -31,7 +34,10 @@ nonzero:
      with skipped steps, a chunk past the counters' flush interval):
      ``free``/``ssum``/``comp``/``cnt`` bit-equal, histograms exactly
      equal; then time both at the main path's chunk shapes (the fig2
-     chunk, and the percentile run's chunk with the sketch, one launch);
+     chunk, and the percentile run's chunk with the sketch, one launch),
+     and ``hist_accum`` on binned responses at the percentile chunk
+     (T=4096, C=12) and at (4096, 1440), beside an empty launch of its
+     plan, its plain version, ``index_put_`` and ``torch.bincount``;
   4. the main path through the kernels: the Figure 2 threshold sweep
      (15 families, N=20, 24 loads, k in {1,2}, 2 seeds = 1,440 cells,
      50k arrivals, chunks of 4096) and a 1M-arrival percentile run of
@@ -286,7 +292,9 @@ ranks') and ``sharded_seq_eval_launches`` phase 20's, the attention
 kernels' ``sharded_serve_launches`` phase 19's (its four ranks');
 ``hist_accum``,
 which no main path launches, reads 0 and gives its launches in phase 2 as
-``check_launches``. Needs CUDA and the repository's
+``check_launches``; its times are at the percentile chunk (its
+``library_ms`` the ``index_put_`` call, ``bincount_ms`` and ``empty_ms``
+beside it) and under ``wide`` at (4096, 1440). Needs CUDA and the repository's
 ``src/`` beside this script (or ``--src``); imports nothing of JAX or of
 ``repro``. ``--gates`` records every gate of phases 2, 3, 5-7, 9, 11 and
 15, and of 16-21 where they are named (20 runs inside 18) (the worst multiple of its
@@ -2096,12 +2104,19 @@ def bit_gate(gate: str, equal: bool, msg: str, raise_on_fail: bool) -> None:
 
 
 def hist_accum_check(dev, raise_on_fail: bool = True) -> float:
-    """Phase 2: ``hist_accum`` against its plain version, exact counts;
-    returns the max abs difference."""
+    """Phase 2: ``hist_accum`` against its plain version, exact counts, on
+    uniform indices and then on every input of
+    ``interop.HIST_ACCUM_CASES`` (binned responses, one bin, all skipped,
+    ragged T and C, several clusters along T, 1-8 cells a CTA, 100 bins to
+    ``MAX_BINS``, a running histogram, unaligned indices), each added into
+    its histogram by one launch; returns the max abs difference."""
     import numpy as np
     import torch
 
+    from repro_torch import interop
+    from repro_torch.kernels.hist_sketch import kernel as hist_kernel
     from repro_torch.kernels.hist_sketch import ops as hist_ops
+    from repro_torch.kernels.hist_sketch.ref import hist_accum_ref
 
     worst = 0.0
     rng = np.random.default_rng(7)
@@ -2118,7 +2133,82 @@ def hist_accum_check(dev, raise_on_fail: bool = True) -> float:
                      f"max|diff|={err}", raise_on_fail)
     log(f"[2] hist_accum kernel == plain (exact counts) for n_bins "
         f"100/256/2048 at (T,C) (4096,16) (4096,1440) (777,37)")
+    for name in interop.HIST_ACCUM_CASES:
+        idx, n_bins, out = interop.hist_accum_case(name, dev)
+        want = out + hist_accum_ref(idx, n_bins=n_bins)
+        plan = hist_kernel.device_plan(idx, n_bins)
+        got = hist_kernel.hist_accum_cuda(idx, out)
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        bit_gate("phase 2 hist_accum", err == 0.0,
+                 f"hist_accum differs on {name} "
+                 f"{interop.HIST_ACCUM_CASES[name]} ({plan}): "
+                 f"max|diff|={err}", raise_on_fail)
+        del idx, out, want, got
+    log(f"[2] hist_accum kernel == plain (exact counts) on "
+        f"{len(interop.HIST_ACCUM_CASES)} more inputs: "
+        f"{', '.join(interop.HIST_ACCUM_CASES)}")
     return worst
+
+
+def hist_responses(dev, t: int, c: int, n_bins: int, rng):
+    """Bin indices (t, c) of M/M/1-like responses (mean 2), a tenth
+    skipped, drawn from ``rng``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.hist_sketch import ops as hist_ops
+
+    resp = torch.from_numpy(rng.exponential(2.0, (t, c)).astype(
+        np.float32)).to(dev)
+    keep = torch.from_numpy((rng.random((t, c)) > 0.1).astype(
+        np.float32)).to(dev)
+    return hist_ops.bin_indices(resp, keep, n_bins=n_bins)
+
+
+def hist_timing(dev, idx, n_bins: int, reps: int = 20) -> dict:
+    """``hist_accum`` at one shape: the kernel adding into a histogram
+    allocated ahead (``ms``), an empty kernel on its plan's grid, clusters
+    and shared memory (``empty_ms``, the launch's floor; None for a tree
+    without one), the plain version, and two library calls: the plain
+    version's one ``index_put_(..., accumulate=True)`` on indices prepared
+    ahead (``library_ms``: nothing waits on the host) and
+    ``torch.bincount`` over the flattened (cell, bin) indices
+    (``bincount_ms``: it reads the largest index on the host before it
+    allocates). The bound counts the indices read once and the histogram
+    read and written once, one add per counted entry."""
+    import torch
+
+    from repro_torch.kernels.hist_sketch import kernel as hist_kernel
+    from repro_torch.kernels.hist_sketch import ops as hist_ops
+
+    t, c = idx.shape
+    out = torch.zeros((c, n_bins), dtype=torch.float32, device=dev)
+    rec = {"T": t, "C": c, "n_bins": n_bins,
+           "ms": cuda_ms(lambda: hist_kernel.hist_accum_cuda(idx, out), reps,
+                         "hist_accum")}
+    empty = getattr(hist_kernel, "empty_launch", None)
+    rec["empty_ms"] = None if empty is None else cuda_ms(
+        lambda: empty(idx, n_bins), reps, "hist_accum empty launch")
+    rec["plain_ms"] = cuda_ms(lambda: hist_ops.hist_accum(
+        idx, n_bins=n_bins, kernel="off"), reps, "hist_accum plain")
+    live = idx >= 0
+    cols = torch.arange(c, device=dev).expand(t, c)
+    safe = idx.clamp(0, n_bins - 1).to(torch.int64)
+    ones = live.to(torch.float32)
+    rec["library_ms"] = cuda_ms(lambda: out.index_put_(
+        (cols, safe), ones, accumulate=True), reps, "index_put_")
+    flat = (torch.arange(c, device=dev)[None, :] * n_bins
+            + idx.clamp(max=n_bins - 1))[live]
+    rec["bincount_ms"] = cuda_ms(lambda: torch.bincount(
+        flat, minlength=c * n_bins), reps, "bincount")
+    n_bytes = 4 * (t * c + 2 * c * n_bins)
+    n_ops = int(live.sum())
+    rec["bound_ms"] = 1e3 * max(n_bytes / HBM_BYTES_PER_S,
+                                n_ops / F32_OPS_PER_S)
+    rec["bound_by"] = ("bytes" if n_bytes / HBM_BYTES_PER_S
+                       >= n_ops / F32_OPS_PER_S else "operations")
+    return rec
 
 
 def cell_kernel_check(dev, raise_on_fail: bool = True) -> float:
@@ -4118,10 +4208,27 @@ FAULTS = {
             "lsum == 0.f ? 0.f : M;",
             "the log-sum-exp is written as the scores' max (0 where no slot "
             "is live)"),
+    # hist_accum's cluster combine
+    "F21": ("hist_sketch",
+            "  count_slab<V>(idx, hist, C, n_bins, G, g, c0, t0, n);\n"
+            "  cluster.sync();\n",
+            "  if (rank != 0) {  // ~100 us before counting\n"
+            "    const long long t = clock64();\n"
+            "    while (clock64() - t < 200000) {\n    }\n  }\n"
+            "  count_slab<V>(idx, hist, C, n_bins, G, g, c0, t0, n);\n",
+            "no cluster barrier before the combine, and every CTA but rank 0 "
+            "waits ~100 us before it counts: rank 0 reads its peers' "
+            "histograms before they are filled"),
+    "F22": ("hist_sketch",
+            "const int hi = min(total, lo + per);",
+            "const int hi = min(total, lo + 2 * per);",
+            "each CTA's share of the bins reaches into the next rank's, so "
+            "those bins are written twice"),
 }
 # phases of --gates that hold each source's kernel (the attention
 # kernels': 5-7), and of the faults of one interface
-FAULT_PHASES = {"cell_update": [2, 3], "ssd_scan": [9], "rglru_scan": [11]}
+FAULT_PHASES = {"cell_update": [2, 3], "hist_sketch": [2], "ssd_scan": [9],
+                "rglru_scan": [11]}
 FAULT_PHASES_OF = {"F19": [5, 19], "F20": [6, 19]}
 GATE_PHASES = [2, 3, 5, 6, 7, 9, 11, 15]
 
@@ -4322,7 +4429,11 @@ def main(argv=None) -> int:
     if args.gates is not None:
         phases = set(args.gates or GATE_PHASES)
         if 2 in phases:
-            hist_accum_check(dev, raise_on_fail=False)
+            try:
+                hist_accum_check(dev, raise_on_fail=False)
+            except RuntimeError as exc:  # a launch that died
+                record_gate("phase 2 launch", math.inf)
+                log(f"    gate failed: {exc}")
         if 3 in phases:
             try:
                 cell_kernel_check(dev, raise_on_fail=False)
@@ -4441,32 +4552,18 @@ def main(argv=None) -> int:
         f"(C=12, N=20, T={CHUNK}, 2048 bins, one launch; kernel == plain "
         f"bit for bit): {ms_pcell:.4f} ms")
     hc = pgrid.plan.n_padded
-    # bin indices of M/M/1-like responses (mean 2), a tenth skipped
-    resp = torch.from_numpy(rng.exponential(2.0, (CHUNK, hc)).astype(
-        np.float32)).to(dev)
-    keep = torch.from_numpy((rng.random((CHUNK, hc)) > 0.1).astype(
-        np.float32)).to(dev)
-    idx = hist_ops.bin_indices(resp, keep, n_bins=nb)
-    ms_hist = cuda_ms(lambda: hist_ops.hist_accum(idx, n_bins=nb,
-                                                  kernel="on"), 20,
-                      "hist_accum")
-    plain_hist = cuda_ms(lambda: hist_ops.hist_accum(idx, n_bins=nb,
-                                                     kernel="off"), 20,
-                         "hist_accum plain")
-    live = idx >= 0
-    flat = (torch.arange(hc, device=dev)[None, :] * nb + idx)[live]
-    lib_hist = cuda_ms(lambda: torch.bincount(flat, minlength=hc * nb), 20,
-                       "bincount")
-    hist_bytes = 4 * (CHUNK * hc + 2 * hc * nb)
-    hist_ops_n = int(live.sum())
-    hist_bound = 1e3 * max(hist_bytes / HBM_BYTES_PER_S,
-                           hist_ops_n / F32_OPS_PER_S)
-    hist_by = ("bytes" if hist_bytes / HBM_BYTES_PER_S
-               >= hist_ops_n / F32_OPS_PER_S else "operations")
-    log(f"[3] hist_accum at the percentile run's chunk (T={CHUNK}, C={hc}, "
-        f"n_bins={nb}): kernel {ms_hist:.4f} ms, plain {plain_hist:.4f} ms, "
-        f"torch.bincount {lib_hist:.4f} ms, bound {hist_bound:.5f} ms "
-        f"({hist_by})")
+    idx = hist_responses(dev, CHUNK, hc, nb, rng)
+    hist_rec = hist_timing(dev, idx, nb)
+    wide_idx, _, _ = interop.hist_accum_case("responses_wide", dev)
+    hist_wide = hist_timing(dev, wide_idx, nb)
+    del wide_idx
+    for r in (hist_rec, hist_wide):
+        log(f"[3] hist_accum at (T={r['T']}, C={r['C']}, n_bins={nb}, "
+            f"binned responses): kernel {r['ms']:.4f} ms, empty launch of "
+            f"its plan {r['empty_ms']} ms, plain {r['plain_ms']:.4f} ms, "
+            f"index_put_ {r['library_ms']:.4f} ms, torch.bincount "
+            f"{r['bincount_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']})")
 
     # ---------------------------------------------------------------- 4
     cell_kernel.cell_update_cuda.launches = 0
@@ -4710,9 +4807,11 @@ def main(argv=None) -> int:
          "replaces": "src/repro/kernels/hist_sketch/kernel.py:81",
          "launches": launches["hist_accum"],
          "check_launches": hist_check_launches,
-         "max_abs_err": errs["hist_accum"], "ms": ms_hist,
-         "plain_ms": plain_hist, "bound_ms": hist_bound,
-         "bound_by": hist_by, "library_ms": lib_hist}]}
+         "max_abs_err": errs["hist_accum"],
+         **{k: hist_rec[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms", "bincount_ms",
+                                     "empty_ms")},
+         "wide": hist_wide}]}
     sources = {"flash_attention": ("flash_attention", 109),
                "decode_attention": ("decode_attention", 88)}
     for name, (pkg, line) in sources.items():

@@ -4,6 +4,7 @@ card, each tree in its own process, in the order given.
 
     python3 kernel_bench.py --src A --src B --src B --src A   # turns: A B B A
     python3 kernel_bench.py --kernel rglru_scan --src A --src B
+    python3 kernel_bench.py --kernel hist_accum --src A --src B --src B --src A
     python3 kernel_bench.py --kernel cell_update --src A --profile
     python3 kernel_bench.py --kernel cell_update --src A --sass DIR
 
@@ -11,13 +12,21 @@ For every tree (a directory holding ``repro_torch``, of this design or an
 earlier one; a variant of a tree is a copy of its package with a kernel
 source edited) the child process builds the kernels it launches from that
 tree and prints one JSON line. Per kernel (``--kernel``, repeatable; all
-three by default) and shape:
+four by default) and shape:
 
   * ``cell_update``: ``fig2``, one call at the fig2 sweep's first chunk
     (C=1440, N=20, T=4096, k_max=2, 15 service families, no sketch);
     ``pct`` / ``pct_nosketch``, the 1M-arrival percentile run's first
     chunk (C=12, T=4096, 2048 bins) with and without the sketch, every
     launch of the sketch included;
+  * ``hist_accum``: ``pct`` and ``wide``, binned responses at the
+    percentile chunk (T=4096, C=12, 2048 bins) and at (4096, 1440), added
+    into a histogram allocated ahead, and ``_one_bin``, every entry in one
+    bin (the most contended input); beside each, ``_empty`` (an empty
+    kernel on the same plan's grid, clusters and shared memory, where the
+    tree has one: the launch's floor), ``_index_put`` (the plain version's
+    one ``index_put_(..., accumulate=True)`` on indices prepared ahead)
+    and ``_bincount`` (``torch.bincount``, which waits on the host);
   * ``ssd_scan``: ``16_chunks``, mamba2-370m's prefill of 4096 tokens (16
     chunks of Q=256, H=32, P=64, N=128, inputs as the model makes them);
     ``1_chunk``, one padded chunk of 16 valid rows (a served prompt);
@@ -53,7 +62,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-KERNELS = ("cell_update", "ssd_scan", "rglru_scan")
+KERNELS = ("cell_update", "hist_accum", "ssd_scan", "rglru_scan")
 
 # clocks each warp of cell_update's block 0 spends waiting on mbarriers,
 # and in all
@@ -121,6 +130,45 @@ def cell_update_calls(dev) -> dict:
                                     p_cfg, p_scn, 0, 0), 5)}
 
 
+def hist_accum_calls(dev) -> dict:
+    import numpy as np
+    import torch
+
+    from chip_smoke import CHUNK, hist_responses
+    from repro_torch.kernels.hist_sketch import kernel as hist_kernel
+    from repro_torch.kernels.hist_sketch import ops as hist_ops
+
+    nb = hist_ops.DEFAULT_BINS
+    rng = np.random.default_rng(7)
+    calls = {}
+    for name, c in (("pct", 12), ("wide", 1440)):
+        idx = hist_responses(dev, CHUNK, c, nb, rng)
+        out = torch.zeros((c, nb), dtype=torch.float32, device=dev)
+        calls[name] = (lambda idx=idx, out=out: hist_kernel.hist_accum_cuda(
+            idx, out), 50)
+        same = torch.full_like(idx, nb // 3)  # every entry in one bin
+        calls[f"{name}_one_bin"] = (
+            lambda idx=same, out=out.clone(): hist_kernel.hist_accum_cuda(
+                idx, out), 50)
+        if hasattr(hist_kernel, "empty_launch"):
+            calls[f"{name}_empty"] = (
+                lambda idx=idx: hist_kernel.empty_launch(idx, nb), 50)
+        live = idx >= 0
+        cols = torch.arange(c, device=dev).expand(CHUNK, c)
+        safe = idx.clamp(0, nb - 1).to(torch.int64)
+        ones = live.to(torch.float32)
+        lib_out = torch.zeros_like(out)
+        calls[f"{name}_index_put"] = (
+            lambda o=lib_out, i=(cols, safe), v=ones: o.index_put_(
+                i, v, accumulate=True), 50)
+        flat = (torch.arange(c, device=dev)[None, :] * nb
+                + idx.clamp(max=nb - 1))[live]
+        calls[f"{name}_bincount"] = (
+            lambda flat=flat, n=c * nb: torch.bincount(flat, minlength=n),
+            50)
+    return calls
+
+
 def ssd_scan_calls(dev) -> dict:
     from chip_smoke import ssd_inputs
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
@@ -158,7 +206,8 @@ def measure(src: Path, kernels: list[str]) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    makers = {"cell_update": cell_update_calls, "ssd_scan": ssd_scan_calls,
+    makers = {"cell_update": cell_update_calls,
+              "hist_accum": hist_accum_calls, "ssd_scan": ssd_scan_calls,
               "rglru_scan": rglru_scan_calls}
     calls = {kernel: makers[kernel](dev) for kernel in kernels}
     out = {"src": str(src)}

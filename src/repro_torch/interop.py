@@ -27,11 +27,14 @@ both packages.
 """
 from __future__ import annotations
 
+import zlib
+
 import numpy as np
 import torch
 
 from repro_torch.core import cellplan
 from repro_torch.device import resolve_device
+from repro_torch.kernels.hist_sketch import kernel as hist_kernel
 
 _DTYPES = {np.dtype(np.float32): torch.float32,
            np.dtype(np.int32): torch.int32,
@@ -256,6 +259,75 @@ def synthetic_chunk(seed: int, *, n_cells: int = 12, n_seeds: int = 2,
     static = dict(n_bins=n_bins, has_shared=has_shared, has_timed=has_timed,
                   has_dists=n_dists > 1)
     return args, static
+
+
+# Inputs of the ``hist_accum`` kernel's checks on the card (chip_smoke.py's
+# phase 2 and the card tests), by name: (T, C, n_bins, kind). Kinds:
+# "uniform", indices drawn in [-1, n_bins); "responses", exponential
+# responses of mean 2 (an M/M/1 cell's) binned by ``bin_indices``, a tenth
+# skipped; "one_bin", every entry in one bin; "skipped", every entry -1;
+# "over_top", indices up to twice n_bins (counted in the top bin);
+# "running", uniform, added into a running histogram; "unaligned", uniform,
+# the indices 4 bytes off a 16-byte boundary. The shapes reach each part of
+# the launch plan: 1, 2, 4 and 8 cells a CTA, 4- and 16-byte loads,
+# clusters of 4 and 8 CTAs, one and several clusters along T, a CTA that
+# walks all of a long T, a ragged last CTA along T and a ragged last group
+# of cells, 100 bins and ``MAX_BINS``.
+HIST_ACCUM_CASES = {
+    "responses": (4096, 12, 2048, "responses"),   # the percentile chunk
+    "responses_wide": (4096, 1440, 2048, "responses"),
+    "responses_100": (4096, 12, 100, "responses"),
+    "one_bin": (4096, 12, 2048, "one_bin"),
+    "one_bin_wide": (4096, 1440, 2048, "one_bin"),
+    "skipped": (4096, 12, 2048, "skipped"),
+    "over_top": (777, 37, 100, "over_top"),
+    "ragged_t": (4097, 12, 2048, "responses"),
+    "one_step": (1, 12, 2048, "uniform"),
+    "long_t": (100_003, 12, 2048, "responses"),
+    "long_t_wide": (20_000, 1440, 256, "uniform"),
+    "ragged_c": (2048, 1444, 256, "uniform"),
+    "ragged_c_odd": (2048, 1441, 256, "uniform"),
+    "eight_cells": (1024, 2112, 256, "uniform"),
+    "eight_cells_odd": (1024, 2113, 256, "uniform"),
+    "four_cells": (1024, 1440, 7300, "uniform"),
+    "two_cells": (512, 1440, 20_000, "uniform"),
+    "max_bins": (1000, 3, hist_kernel.MAX_BINS, "uniform"),
+    "running": (4096, 12, 2048, "running"),
+    "unaligned": (4096, 1440, 2048, "unaligned"),
+}
+
+
+def hist_accum_case(name: str, device="cuda"):
+    """``(idx, n_bins, out)`` of ``HIST_ACCUM_CASES[name]``, drawn with
+    numpy from a seed of the name: the indices (T, C) int32 and the
+    histogram (C, n_bins) float32 they are added into (zeros, or running
+    counts)."""
+    from repro_torch.kernels.hist_sketch import ops as hist_ops
+
+    t, c, n_bins, kind = HIST_ACCUM_CASES[name]
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    if kind == "responses":
+        resp = torch.from_numpy(rng.exponential(2.0, (t, c)).astype(
+            np.float32)).to(device)
+        keep = torch.from_numpy((rng.random((t, c)) > 0.1).astype(
+            np.float32)).to(device)
+        idx = hist_ops.bin_indices(resp, keep, n_bins=n_bins)
+    else:
+        if kind == "one_bin":
+            idx = np.full((t, c), n_bins // 3)
+        elif kind == "skipped":
+            idx = np.full((t, c), -1)
+        else:
+            top = 2 * n_bins if kind == "over_top" else n_bins
+            idx = rng.integers(-1, top, (t, c))
+        idx = torch.from_numpy(idx.astype(np.int32)).to(device)
+    if kind == "unaligned":
+        flat = torch.empty(t * c + 1, dtype=torch.int32, device=device)
+        flat[1:] = idx.flatten()
+        idx = flat[1:].view(t, c)
+    out = (rng.integers(0, 1000, (c, n_bins)) if kind == "running"
+           else np.zeros((c, n_bins)))
+    return idx, n_bins, torch.from_numpy(out.astype(np.float32)).to(device)
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,9 @@ from repro_torch.core.scenario import (CANCEL_ON_COMPLETE, HEDGE_AFTER_DELAY,
                                        Scenario)
 from repro_torch.kernels.cell_update import kernel as cell_kernel
 from repro_torch.kernels.cell_update import ops as cell_ops
+from repro_torch.kernels.hist_sketch import kernel as hist_kernel
 from repro_torch.kernels.hist_sketch import ops as hist_ops
+from repro_torch.kernels.hist_sketch.ref import hist_accum_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -30,13 +32,40 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n_bins", [100, 256, 2048])
-def test_hist_accum_kernel_equals_plain(cuda_device, n_bins):
-    idx = np.random.default_rng(n_bins).integers(-1, n_bins, (4096, 37))
-    idx = torch.from_numpy(idx.astype(np.int32)).to(cuda_device)
-    got = hist_ops.hist_accum(idx, n_bins=n_bins, kernel="on")
-    want = hist_ops.hist_accum(idx, n_bins=n_bins, kernel="off")
+@pytest.mark.parametrize("case", [100, 256, 2048] + list(
+    interop.HIST_ACCUM_CASES))
+def test_hist_accum_kernel_equals_plain(cuda_device, case):
+    # uniform indices at n_bins = case, or an input of chip_smoke.py's
+    # phase 2 added into its histogram by one launch
+    if isinstance(case, int):
+        idx = np.random.default_rng(case).integers(-1, case, (4096, 37))
+        idx = torch.from_numpy(idx.astype(np.int32)).to(cuda_device)
+        got = hist_ops.hist_accum(idx, n_bins=case, kernel="on")
+        want = hist_ops.hist_accum(idx, n_bins=case, kernel="off")
+        assert torch.equal(got, want)
+        return
+    idx, n_bins, out = interop.hist_accum_case(case, cuda_device)
+    want = out + hist_accum_ref(idx, n_bins=n_bins)
+    before = hist_kernel.hist_accum_cuda.launches
+    got = hist_kernel.hist_accum_cuda(idx, out)
+    torch.cuda.synchronize()
+    assert hist_kernel.hist_accum_cuda.launches == before + 1
     assert torch.equal(got, want)
+
+
+def test_hist_accum_refused_plan_raises(cuda_device, monkeypatch):
+    # a plan the launcher refuses (a cluster of 16, past the portable 8)
+    # raises and counts no launch; nothing falls back to the plain version
+    idx = torch.zeros((4096, 12), dtype=torch.int32, device=cuda_device)
+    out = torch.zeros((12, 2048), dtype=torch.float32, device=cuda_device)
+    plan = hist_kernel.device_plan(idx, 2048)
+    monkeypatch.setattr(hist_kernel, "device_plan", lambda *a: type(plan)(
+        plan.cells, plan.vec, 16, plan.clusters_t, plan.slice, plan.groups))
+    before = hist_kernel.hist_accum_cuda.launches
+    with pytest.raises(RuntimeError, match="hist_accum kernel launch"):
+        hist_kernel.hist_accum_cuda(idx, out)
+    assert hist_kernel.hist_accum_cuda.launches == before
+    assert float(out.abs().sum()) == 0.0
 
 
 @pytest.mark.parametrize("arm", list(interop.CELL_UPDATE_ARMS) + [

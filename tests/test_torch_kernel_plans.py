@@ -1,17 +1,23 @@
 """Host-side plans of the port's CUDA kernels, on the CPU: the split plan
 of ``decode_attention`` (from the cache's shape and the card's SM count),
 the launch plan of ``cell_update`` (template, cells per block, tile,
-stages and shared memory, from the chunk's shape) and the per-source
-``nvcc`` flags. The kernels themselves run only on the
+stages and shared memory, from the chunk's shape), the launch plan of
+``hist_accum`` (cells a CTA, loads, clusters along T and the clusters'
+split of the bins, emulated in numpy against the plain version) and the
+per-source ``nvcc`` flags. The kernels themselves run only on the
 card (``tests/test_torch_cuda_kernels.py``, ``chip_smoke.py``)."""
 import re
 
+import numpy as np
 import pytest
+import torch
 
 from repro_torch import interop
 from repro_torch.kernels import build
 from repro_torch.kernels.cell_update import kernel as cell_kernel
 from repro_torch.kernels.decode_attention import kernel as da_kernel
+from repro_torch.kernels.hist_sketch import kernel as hist_kernel
+from repro_torch.kernels.hist_sketch.ref import hist_accum_ref
 
 H100_SMS = 132
 
@@ -236,3 +242,156 @@ def test_cell_edges_count_steps_in_their_last_partial_tile():
             part = steps % tile
             if part:
                 assert pad < part and warmup < steps - pad, (name, tile)
+
+
+def test_hist_constants_match_the_source():
+    for name, value in (("kThreads", hist_kernel.THREADS),
+                        ("kUnroll", hist_kernel.UNROLL),
+                        ("kMaxGroup", hist_kernel.MAX_GROUP),
+                        ("kMaxCluster", hist_kernel.MAX_CLUSTER),
+                        ("kMaxSmem", hist_kernel.MAX_SMEM_BYTES),
+                        ("kMaxGroups", hist_kernel.MAX_GROUPS)):
+        assert _cu_constant("hist_sketch", name) == value, name
+    text = (build.CSRC / "hist_sketch.cu").read_text()
+    # the histogram's padding and the shares' arithmetic are the plan's
+    assert "return (G * n_bins + 3) & ~3;" in text
+    assert "const int per = (total + 4 * K - 1) / (4 * K) * 4;" in text
+    assert "const int lo = min(total, rank * per);" in text
+    assert "const int hi = min(total, lo + per);" in text
+    assert max(hist_kernel.GROUPS) == hist_kernel.MAX_GROUP
+    assert hist_kernel.MAX_BINS == hist_kernel.MAX_SMEM_BYTES // 4
+
+
+HIST_SHAPES = sorted({(t, c, nb) for t, c, nb, _ in
+                      interop.HIST_ACCUM_CASES.values()}
+                     | {(t, c, nb) for nb in (100, 256, 2048)
+                        for t, c in ((4096, 16), (4096, 1440), (777, 37))}
+                     | {(1, 1, 1), (5, 3, 7), (65_536, 1, 2048),
+                        (4096, 500_000, 16)})
+
+
+@pytest.mark.parametrize("t,c,n_bins", HIST_SHAPES)
+@pytest.mark.parametrize("aligned", (True, False))
+def test_hist_plan_covers_every_entry_once(t, c, n_bins, aligned):
+    plan = hist_kernel.launch_plan(t, c, n_bins, H100_SMS, aligned=aligned)
+    assert plan.cells in hist_kernel.GROUPS and plan.vec in (1, 4)
+    if plan.vec == 4:
+        assert aligned and plan.cells % 4 == 0 and c % 4 == 0
+    # rows: CTA x takes steps [x S, (x + 1) S); cells: group y takes
+    # [y G, (y + 1) G); each step and each cell once, so each (t, c) once
+    n_x = plan.cluster * plan.clusters_t
+    rows = np.zeros(t, np.int64)
+    for x in range(n_x):
+        rows[x * plan.slice:(x + 1) * plan.slice] += 1
+    assert (rows == 1).all()
+    assert plan.groups == -(-c // plan.cells) <= hist_kernel.MAX_GROUPS
+    assert (plan.groups - 1) * plan.cells < c
+    # inside a CTA: cells // vec threads a step, each of vec cells, the
+    # rest of the threads along the steps
+    cols = plan.cells // plan.vec
+    assert cols * plan.vec == plan.cells and hist_kernel.THREADS % cols == 0
+    # clusters only where the groups leave SMs idle, and then enough CTAs
+    # for one an SM (or one a step)
+    n_x = plan.cluster * plan.clusters_t
+    if plan.groups >= H100_SMS:
+        assert n_x == 1
+    else:
+        assert plan.ctas >= min(H100_SMS, plan.groups * t)
+        assert plan.cluster * (plan.clusters_t - 1) < -(-H100_SMS
+                                                        // plan.groups)
+    assert 4 * hist_kernel.hist_words(plan.cells, n_bins) <= hist_kernel.MAX_SMEM_BYTES
+    assert plan.cluster in (1, 2, 4, 8)
+    assert plan.cluster <= hist_kernel.MAX_CLUSTER
+
+
+@pytest.mark.parametrize("cells", range(1, hist_kernel.MAX_GROUP + 1))
+@pytest.mark.parametrize("n_bins", (1, 3, 100, 2048, 7300,
+                                    hist_kernel.MAX_BINS))
+def test_hist_cluster_splits_the_bins(cells, n_bins):
+    for cluster in (1, 2, 4, 8):
+        shares = [hist_kernel.bin_share(r, cluster, cells, n_bins)
+                  for r in range(cluster)]
+        # rank order, no gap, no overlap, from 0 to the group's last bin
+        assert shares[0][0] == 0 and shares[-1][1] == cells * n_bins
+        for (lo, hi), (lo2, _) in zip(shares, shares[1:]):
+            assert lo <= hi == lo2
+        # 16-byte reads of the peers' histograms: every share starts on one
+        assert all(lo % 4 == 0 for lo, hi in shares if lo < hi)
+
+
+@pytest.mark.parametrize("n_bins", (1, 100, 2048, 7264, 7265, 14_528,
+                                    14_529, 29_056, 29_057,
+                                    hist_kernel.MAX_BINS))
+@pytest.mark.parametrize("c", (1, 12, 1440, 65_535))
+def test_hist_plan_fits_the_shared_memory(n_bins, c):
+    plan = hist_kernel.launch_plan(4096, c, n_bins, H100_SMS)
+    assert 4 * hist_kernel.hist_words(plan.cells, n_bins) <= hist_kernel.MAX_SMEM_BYTES
+    # no wider group that fits would still leave two groups an SM
+    for g in (g for g in hist_kernel.GROUPS if g > plan.cells):
+        assert (4 * hist_kernel.hist_words(g, n_bins)
+                > hist_kernel.MAX_SMEM_BYTES or -(-c // g) < 2 * H100_SMS)
+
+
+@pytest.mark.parametrize("t,c", [(4096, 12), (4096, 1440)])
+def test_hist_plan_fills_the_card(t, c):
+    # the percentile chunk and phase 2's widest shape, 2048 bins
+    plan = hist_kernel.launch_plan(t, c, 2048, H100_SMS)
+    assert plan.ctas >= H100_SMS
+    # few cells: one a CTA, the steps over clusters of 8; many: 4 a CTA
+    # (two groups an SM), 16-byte loads, no cluster
+    assert (plan.cells, plan.vec, plan.cluster) == (
+        (1, 1, 8) if c == 12 else (4, 4, 1))
+
+
+def test_hist_plan_rejects_what_no_launch_takes():
+    for n_bins in (0, hist_kernel.MAX_BINS + 1):
+        with pytest.raises(ValueError, match="n_bins"):
+            hist_kernel.launch_plan(4096, 12, n_bins, H100_SMS)
+    with pytest.raises(ValueError):
+        hist_kernel.launch_plan(0, 12, 2048, H100_SMS)
+    with pytest.raises(ValueError, match="groups"):
+        hist_kernel.launch_plan(16, 8 * hist_kernel.MAX_GROUPS + 1, 16,
+                                H100_SMS)
+
+
+def _emulate_hist(idx: np.ndarray, n_bins: int, plan, out: np.ndarray):
+    """The kernel's dataflow in numpy: each CTA counts its slab into its
+    own histogram; each cluster's rank r adds the sum of its peers'
+    share r into ``out``."""
+    t, c = idx.shape
+    for y in range(plan.groups):
+        c0 = y * plan.cells
+        g = min(plan.cells, c - c0)
+        for k in range(plan.clusters_t):
+            hists = []
+            for r in range(plan.cluster):
+                x = k * plan.cluster + r
+                slab = idx[x * plan.slice:(x + 1) * plan.slice, c0:c0 + g]
+                h = np.zeros(g * n_bins, np.int64)
+                for j in range(g):
+                    b = slab[:, j][slab[:, j] >= 0]
+                    np.add.at(h, j * n_bins + np.minimum(b, n_bins - 1), 1)
+                hists.append(h)
+            flat = out[c0:c0 + g].reshape(-1)
+            for r in range(plan.cluster):
+                lo, hi = hist_kernel.bin_share(r, plan.cluster, g, n_bins)
+                flat[lo:hi] += sum(h[lo:hi] for h in hists)
+
+
+@pytest.mark.parametrize("t,c,n_bins,n_sm", [
+    (300, 5, 37, 132),      # one cell a CTA, 4 clusters of 8 along T
+    (2000, 24, 16, 1),      # 8 cells a CTA, 16-byte loads, no cluster
+    (3000, 21, 10, 1),      # 8 cells, a ragged last group, 4-byte loads
+    (2000, 12, 16, 4),      # one cell a CTA, no cluster: all of T each
+    (50, 8, 16, 132),       # 3 clusters of 8 along T, 3 steps a CTA
+    (1, 3, 5, 132),
+    (777, 37, 100, 132),
+])
+def test_hist_plan_emulated_equals_plain(t, c, n_bins, n_sm):
+    rng = np.random.default_rng(t + c)
+    idx = rng.integers(-1, 2 * n_bins, (t, c)).astype(np.int32)
+    plan = hist_kernel.launch_plan(t, c, n_bins, n_sm)
+    out = rng.integers(0, 50, (c, n_bins)).astype(np.float32)
+    want = out + hist_accum_ref(torch.from_numpy(idx), n_bins=n_bins).numpy()
+    _emulate_hist(idx, n_bins, plan, out)
+    np.testing.assert_array_equal(out, want)

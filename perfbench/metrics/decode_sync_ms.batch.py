@@ -1,0 +1,6 @@
+"""Mean wait of a decode step for its token on the card, from the program's spans, in the throughput cells (layer: engine)."""
+from perfbench import spans
+
+
+def read(run):
+    return spans.step_ms(run, "repro.decode.sync")

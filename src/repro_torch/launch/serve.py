@@ -12,11 +12,18 @@ redundancy on):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \\
       --smoke --replicas 4 --requests 64 --max-k 2 --device cpu
 
+``--trace-out PATH`` writes, when the run ends, one JSON line a request:
+its trace (``serving.metrics.RequestTrace``: the submit stamp, the k and
+the utilization the scheduler decided on, whether it shed) with its
+copies' spans (queue wait, the copy's run and outcome, each prefill and
+decode step split into the host's enqueue and the wait for the token).
+
 ``main(argv)`` returns the latencies (seconds) and the scheduler's stats.
 """
 from __future__ import annotations
 
 import argparse
+import json
 
 import numpy as np
 import torch
@@ -43,6 +50,9 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--max-new-tokens", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--trace-out", default=None,
+                    help="write each request's trace and its copies' spans "
+                         "here, one JSON line a request, when the run ends")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -57,15 +67,19 @@ def main(argv: list[str] | None = None) -> dict:
                                     threshold=args.threshold),
         seed=args.seed)
     rng = np.random.default_rng(args.seed)
-    lat = []
+    reqs = []
     try:
         for _ in range(args.requests):
             prompt = rng.integers(0, cfg.vocab_size, 16).astype(np.int32)
-            req = sched.submit(prompt, max_new_tokens=args.max_new_tokens)
-            lat.append(req.latency)
+            reqs.append(sched.submit(prompt,
+                                     max_new_tokens=args.max_new_tokens))
     finally:
         sched.shutdown()
-    lat = np.asarray(lat)
+    if args.trace_out:
+        with open(args.trace_out, "w") as f:
+            for req in reqs:
+                f.write(json.dumps(req.trace.to_json()) + "\n")
+    lat = np.asarray([req.latency for req in reqs])
     print(f"[serve] n={len(lat)} mean={lat.mean()*1e3:.1f}ms "
           f"p50={np.percentile(lat, 50)*1e3:.1f}ms "
           f"p99={np.percentile(lat, 99)*1e3:.1f}ms")

@@ -54,6 +54,7 @@ from repro_torch.distributed.ctx import (ShardCtx, batch_axes, check_seq,
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, mla, moe, rglru, ssd
 from repro_torch.models.layers import mlp, rmsnorm
+from repro_torch.tracing import counted_in_step
 
 KIND_TABLE = {
     "global": ("global", "dense"),
@@ -379,7 +380,9 @@ def _mlp_residual(p: Block, x: torch.Tensor, cfg: ModelConfig,
     aux = None
     h = rmsnorm(p.mlp_norm, x, cfg.norm_eps)
     if p.mlp_kind == "moe":
-        h, aux = _run_moe(p.mlp, h, cfg, capacity=capacity, ctx=ctx)
+        # the host's time enqueuing the MoE layers, in a served copy's step
+        with counted_in_step("moe_ns", "repro.moe"):
+            h, aux = _run_moe(p.mlp, h, cfg, capacity=capacity, ctx=ctx)
     else:
         h = mlp(p.mlp, h, cfg.mlp_act)
     if cfg.post_norm:

@@ -28,11 +28,13 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import dispatch
 from repro_torch.models import decode as dec
 from repro_torch.models.lm import LM
+from repro_torch.serving.metrics import RequestTrace
 
 
 @dataclasses.dataclass
@@ -48,6 +50,7 @@ class Request:
     cancelled: bool = False
     completed_by: str = ""
     failed: bool = False            # every issued copy errored
+    trace: RequestTrace | None = None   # per-copy spans (serving.metrics)
 
 
 class InferenceEngine:
@@ -80,21 +83,30 @@ class InferenceEngine:
     def generate(self, prompt: np.ndarray, max_new_tokens: int = 16,
                  check_cancel: Callable[[], bool] | None = None
                  ) -> np.ndarray | None:
+        # each step's spans: the host enqueues its ops, then waits on the
+        # card for its token (``int``)
+        span = tracing.current_copy()
         toks = torch.as_tensor(np.asarray(prompt), dtype=torch.long,
                                device=self.device)[None]
+        span.enqueue("repro.prefill", toks.shape[1])
         logits, cache = dec.prefill(self.model, toks, self.max_len,
                                     kernel=self.kernel)
         out = []
         pos = toks.shape[1]
         tok = torch.argmax(logits, dim=-1)  # (1,)
+        span.wait()
         out.append(int(tok[0]))
+        span.token()
         for _ in range(max_new_tokens - 1):
             if check_cancel is not None and check_cancel():
                 return None
+            span.enqueue("repro.decode")
             logits, cache = dec.decode_step(self.model, cache, tok[:, None],
                                             pos, kernel=self.kernel)
             tok = torch.argmax(logits, dim=-1)
+            span.wait()
             out.append(int(tok[0]))
+            span.token()
             pos += 1
         return np.asarray(out, dtype=np.int32)
 

@@ -22,14 +22,31 @@ hedge and shed counts per request, folded as they complete into
 windowed ``TailSketch``es (one sketch per ``window_s`` of arrival
 time). ``json_rows()`` exports the windowed p50/p99/p999 trajectory as
 JSON-ready provenance rows — the benchmark artifact's raw material.
+
+Beneath those records hang the per-copy spans of the request's trace
+(``RequestTrace``, ``CopySpan``, ``Span``), on the same request id, all
+stamped on ``time.perf_counter()``'s clock and kept in memory: each copy's
+wait in its replica's queue (``repro.queue``), its run (``repro.copy``),
+and inside the engine each step split into the host's enqueue of its ops
+(``repro.prefill``, ``repro.decode``) and the wait for its token
+(``repro.prefill.sync``, ``repro.decode.sync``); the MoE layers' share of a
+step's enqueue is the step's counter ``moe_ns``. The worker running a copy
+makes its span current on its thread (``repro_torch.tracing``); the engine
+and the model write to it, and do nothing on a thread without one. While a
+``torch.profiler`` session records, each span on one thread also enters a
+``record_function`` of its name, and each MoE call one named ``repro.moe``.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import threading
+import time
 from typing import Iterable
 
 import numpy as np
+
+from repro_torch import tracing
 
 # One geometry for engine sweeps and serving telemetry: these constants
 # are owned by the hist_sketch kernel package.
@@ -256,3 +273,159 @@ class Telemetry:
                     "windows": len(self._windows),
                     "window_s": self.window_s,
                     **{k: float(v) for k, v in zip(_PCT_KEYS, qs)}}
+
+
+# ---------------------------------------------------------------------------
+# Per-copy spans of a request's trace
+# ---------------------------------------------------------------------------
+
+NAN = float("nan")
+
+
+class Span:
+    """One interval on ``time.perf_counter()``'s clock: its ``name``, the
+    ``parent`` span that caused it (None: the request itself), and the
+    ``counters`` made inside it. ``end`` is NaN while it is open."""
+
+    __slots__ = ("name", "start", "end", "parent", "counters", "_rf")
+
+    def __init__(self, name: str, start: float, parent: "Span | None" = None):
+        self.name = name
+        self.start = start
+        self.end = NAN
+        self.parent = parent
+        self.counters: dict[str, int] = {}
+        self._rf = None     # its ``record_function``, under a profiler
+
+    @property
+    def seconds(self) -> float:
+        return self.end - self.start
+
+    def close(self, t: float) -> None:
+        self.end = t
+        if self._rf is not None:
+            self._rf.__exit__(None, None, None)
+            self._rf = None
+
+    def to_json(self) -> dict:
+        return {"name": self.name, "start": _num(self.start),
+                "end": _num(self.end),
+                "parent": None if self.parent is None else self.parent.name,
+                **({"counters": dict(self.counters)} if self.counters
+                   else {})}
+
+
+def _num(x: float) -> float | None:
+    return None if math.isnan(x) else x
+
+
+class CopySpan(Span):
+    """One copy of a request on one replica (``repro.copy``), created when
+    the copy is queued: its ``queue`` span runs from then until its
+    replica's worker takes it up (``begin``) or drops it unstarted
+    (``drop``); ``spans`` are the engine's steps in order, each enqueue
+    followed by its wait. ``outcome``: ``won``, ``lost`` (started, then
+    beaten), ``cancelled`` (never started) or ``failed`` (raised);
+    ``prompt_tokens`` prefilled and ``tokens`` computed. The spans opened
+    on the worker's thread (the copy's run and its steps) also enter a
+    ``record_function`` under a profiler; the queue span, opened on the
+    submitter's thread, does not."""
+
+    __slots__ = ("replica", "priority", "outcome", "queue", "spans",
+                 "prompt_tokens", "tokens", "t_first_token", "_open",
+                 "_sync")
+
+    def __init__(self, replica: str, priority: int, t: float):
+        super().__init__("repro.copy", NAN)
+        self.replica = replica
+        self.priority = priority
+        self.outcome = ""
+        self.queue = Span("repro.queue", t)
+        self.spans: list[Span] = []
+        self.prompt_tokens = 0
+        self.tokens = 0
+        self.t_first_token = NAN
+        self._open: Span | None = None   # the step the host is enqueuing
+        self._sync: Span | None = None   # the step's wait for its token
+
+    # --- the replica's worker thread ---
+    def begin(self) -> None:
+        t = time.perf_counter()
+        self.queue.close(t)
+        self.start = t
+        self._rf = tracing.record(self.name)
+        tracing.set_current(self)
+
+    def drop(self) -> None:
+        self.queue.close(time.perf_counter())
+        self.outcome = "cancelled"
+
+    def finish(self, outcome: str) -> None:
+        t = time.perf_counter()
+        for s in (self._open, self._sync):   # the engine raised in a step
+            if s is not None:
+                s.close(t)
+        self._open = self._sync = None
+        self.close(t)
+        self.outcome = outcome
+        tracing.set_current(tracing.NO_COPY)
+
+    # --- the engine, on the same thread ---
+    def _step(self, name: str, t: float) -> Span:
+        s = Span(name, t, self)
+        s._rf = tracing.record(name)
+        self.spans.append(s)
+        return s
+
+    def enqueue(self, name: str, prompt_tokens: int = 0) -> None:
+        """Open a step: the host enqueues its ops until ``wait``."""
+        self._open = self._step(name, time.perf_counter())
+        self.prompt_tokens += prompt_tokens
+
+    def wait(self) -> None:
+        """Close the step's enqueue, open its wait for the card."""
+        t = time.perf_counter()
+        s, self._open = self._open, None
+        s.close(t)
+        self._sync = self._step(s.name + ".sync", t)
+
+    def token(self) -> None:
+        """Close the wait: the step's token is on the host."""
+        t = time.perf_counter()
+        self._sync.close(t)
+        self._sync = None
+        self.tokens += 1
+        if math.isnan(self.t_first_token):
+            self.t_first_token = t
+
+    def to_json(self) -> dict:
+        return {"replica": self.replica, "priority": self.priority,
+                "outcome": self.outcome,
+                "prompt_tokens": self.prompt_tokens, "tokens": self.tokens,
+                "t_first_token": _num(self.t_first_token),
+                "spans": [self.queue.to_json(), Span.to_json(self),
+                          *(s.to_json() for s in self.spans)]}
+
+
+@dataclasses.dataclass(eq=False)
+class RequestTrace:
+    """A request's trace: its own submit stamp, what the dispatcher decided
+    for it (``k`` copies at the ``utilization`` it read, and whether it
+    ``shed`` the duplicates), and one ``CopySpan`` per copy queued."""
+
+    rid: int
+    t_submit: float
+    k: int = 1
+    utilization: float = NAN
+    shed: bool = False
+    copies: list[CopySpan] = dataclasses.field(default_factory=list)
+
+    def add_copy(self, replica: str, priority: int) -> CopySpan:
+        c = CopySpan(replica, priority, time.perf_counter())
+        self.copies.append(c)
+        return c
+
+    def to_json(self) -> dict:
+        return {"rid": self.rid, "t_submit": self.t_submit, "k": self.k,
+                "utilization": _num(self.utilization), "shed": self.shed,
+                "copies": [c.to_json() for c in self.copies]}

@@ -50,6 +50,7 @@ import numpy as np
 
 from repro_torch.core.hedging import HedgePolicy, LoadMeter, LoadTracker
 from repro_torch.serving.engine import Request
+from repro_torch.serving.metrics import RequestTrace
 
 PRIORITY_HIGH = 0
 PRIORITY_LOW = 1
@@ -72,13 +73,14 @@ class RetryPolicy:
 
 
 class _Copy:
-    __slots__ = ("req", "priority", "cancelled", "started")
+    __slots__ = ("req", "priority", "cancelled", "started", "span")
 
     def __init__(self, req: Request, priority: int):
         self.req = req
         self.priority = priority
         self.cancelled = False
         self.started = False
+        self.span = None    # its ``CopySpan`` while the request is traced
 
 
 class ReplicaWorker:
@@ -88,7 +90,12 @@ class ReplicaWorker:
     an O(1) read); an owner may additionally define
     ``_on_copy_done(worker, copy, won)`` to observe completions — the
     batched service (``repro_torch.serving.service``) finalizes requests
-    there instead of blocking a submitter thread per request."""
+    there instead of blocking a submitter thread per request.
+
+    A copy of a traced request (``Request.trace`` set by the owner) gets
+    its ``CopySpan`` when it is queued here; the worker makes the span
+    current on its thread around ``engine.generate`` and closes it with
+    the copy's outcome."""
 
     def __init__(self, engine, scheduler: "HedgedScheduler", name: str):
         self.engine = engine
@@ -104,6 +111,8 @@ class ReplicaWorker:
         self._thread.start()
 
     def submit(self, copy: _Copy) -> None:
+        if copy.req.trace is not None:
+            copy.span = copy.req.trace.add_copy(self.name, copy.priority)
         with self._cv:
             heapq.heappush(self._heap, (copy.priority, next(self._counter),
                                         copy))
@@ -126,6 +135,9 @@ class ReplicaWorker:
             already = self._stop
             self._stop = True
             self._cv.notify_all()
+        for c in pending:
+            if c.span is not None:
+                c.span.drop()
         if not already and self._thread.is_alive():
             self._thread.join(timeout=5)
         return pending
@@ -139,12 +151,18 @@ class ReplicaWorker:
                     return
                 _, _, copy = heapq.heappop(self._heap)
                 if copy.cancelled or copy.req.done_event.is_set():
+                    if copy.span is not None:
+                        copy.span.drop()
                     continue  # a sibling already finished: drop silently
                 copy.started = True
                 self._busy = True
+            span = copy.span
+            if span is not None:
+                span.begin()
             tracker = getattr(self.scheduler, "tracker", None)
             if tracker is not None:
                 tracker.incr_busy()
+            outcome = "lost"
             try:
                 out = self.engine.generate(
                     copy.req.tokens, copy.req.max_new_tokens,
@@ -153,17 +171,19 @@ class ReplicaWorker:
                      c.req.done_event.is_set()))
             except Exception:
                 out = None  # replica failure: redundancy masks it
+                outcome = "failed"
             finally:
                 with self._cv:
                     self._busy = False
                 if tracker is not None:
                     tracker.decr_busy()
-            won = False
-            if out is not None and not copy.req.done_event.is_set():
+            won = out is not None and not copy.req.done_event.is_set()
+            if span is not None:
+                span.finish("won" if won else outcome)
+            if won:
                 copy.req.out_tokens = list(map(int, out))
                 copy.req.completed_by = self.name
                 copy.req.done_event.set()
-                won = True
             on_done = getattr(self.scheduler, "_on_copy_done", None)
             if on_done is not None:
                 on_done(self, copy, won)
@@ -178,8 +198,10 @@ class HedgedScheduler:
                  hedge_delay: float = 0.0,
                  retry: RetryPolicy | None = None,
                  shed_watermark: float = 1.0,
-                 tracker: LoadTracker | None = None):
+                 tracker: LoadTracker | None = None,
+                 trace: bool = True):
         self.policy = policy or HedgePolicy()
+        self.trace = bool(trace)   # per-copy spans on each request
         self.meter = meter or LoadMeter(alpha=0.2)
         self.tied_cancel = tied_cancel
         self.rng = np.random.default_rng(seed)
@@ -274,6 +296,8 @@ class HedgedScheduler:
         req = Request(rid=next(self._rid), tokens=tokens,
                       max_new_tokens=max_new_tokens,
                       submitted_at=time.monotonic())
+        if self.trace:
+            req.trace = RequestTrace(req.rid, time.perf_counter())
         deadline_t = req.submitted_at + timeout
         dispatched: list[tuple[ReplicaWorker, _Copy]] = []
         used: set[str] = set()
@@ -298,13 +322,17 @@ class HedgedScheduler:
                 used.add(w.name)
                 d *= retry.backoff
         else:
-            k = self.policy.k_for(self.meter.utilization)
+            u = self.meter.utilization
+            k = self.policy.k_for(u)
             with self._lock:
                 n = len(self.workers)
             k = min(k, n)
-            if k > 1 and self.utilization() >= self.shed_watermark:
+            shed = k > 1 and self.utilization() >= self.shed_watermark
+            if shed:
                 k = 1   # graceful degradation: shed duplicates
                 self.stats["shed"] += 1
+            if req.trace is not None:
+                req.trace.k, req.trace.utilization, req.trace.shed = k, u, shed
             w = self._dispatch(req, PRIORITY_HIGH, dispatched, used)
             used.add(w.name)
             if k > 1:

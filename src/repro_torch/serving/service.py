@@ -51,7 +51,7 @@ import numpy as np
 from repro_torch.core.hedging import HedgePolicy, LoadTracker
 from repro_torch.serving.controller import AdaptiveController
 from repro_torch.serving.engine import Request
-from repro_torch.serving.metrics import Telemetry
+from repro_torch.serving.metrics import RequestTrace, Telemetry
 from repro_torch.serving.scheduler import (PRIORITY_HIGH, PRIORITY_LOW, ReplicaWorker,
                                      _Copy)
 
@@ -174,7 +174,9 @@ class BatchedHedgedService:
     the static ``k`` / ``hedge_delay_s`` knobs, else a ``HedgePolicy``
     driven by the shared tracker's utilization. ``shed_watermark``
     reads the SAME ``LoadTracker`` the workers update — the O(1)
-    signal, identical to what the controller sees.
+    signal, identical to what the controller sees. With ``trace`` (the
+    default) each request carries a ``RequestTrace``: what the dispatcher
+    decided for it and its copies' spans (``serving.metrics``).
     """
 
     def __init__(self, engines: Sequence[Any], *,
@@ -190,7 +192,8 @@ class BatchedHedgedService:
                  telemetry: Telemetry | None = None,
                  shed_watermark: float = 1.0,
                  tied_cancel: bool = False,
-                 seed: int = 0):
+                 seed: int = 0,
+                 trace: bool = True):
         engines = list(engines)
         if not engines:
             raise ValueError("need at least one engine")
@@ -201,6 +204,7 @@ class BatchedHedgedService:
         self.static_k = int(k)
         self.static_delay = float(hedge_delay_s)
         self.shed_watermark = float(shed_watermark)
+        self.trace = bool(trace)
         self.tracker = tracker or (controller.tracker if controller
                                    else LoadTracker(len(engines)))
         self.tracker.set_capacity(len(engines))
@@ -297,6 +301,8 @@ class BatchedHedgedService:
         return req.out_tokens
 
     def _enqueue(self, req: Request, t: float) -> None:
+        if self.trace:
+            req.trace = RequestTrace(req.rid, time.perf_counter())
         g = req.rid % len(self._groups)
         p = _Pending(req, g)
         with self._plock:
@@ -314,12 +320,12 @@ class BatchedHedgedService:
 
     # ------------------------------------------------------------------
     # dispatch: one thread per replica group
-    def _decide(self) -> tuple[int, float]:
+    def _decide(self, u: float) -> tuple[int, float]:
+        """(k, hedge delay) at the pool's utilization ``u``."""
         if self.controller is not None:
             k, delay = self.controller.current()
         elif self.policy is not None:
-            k, delay = self.policy.k_for(self.tracker.utilization()), \
-                self.static_delay
+            k, delay = self.policy.k_for(u), self.static_delay
         else:
             k, delay = self.static_k, self.static_delay
         return max(int(k), 1), float(delay)
@@ -336,13 +342,17 @@ class BatchedHedgedService:
                 p = inbox.popleft()
             if p.req.cancelled:
                 continue
-            k, delay = self._decide()
+            u = self.tracker.utilization()
+            k, delay = self._decide(u)
             k = min(k, len(workers))
             shed = False
             if k > 1 and self.tracker.utilization() >= self.shed_watermark:
                 k, shed = 1, True
                 self._bump("shed")
             p.k, p.hedge_delay = k, delay
+            if p.req.trace is not None:
+                p.req.trace.k, p.req.trace.utilization = k, u
+                p.req.trace.shed = shed
             t = time.monotonic()
             self.telemetry.note_dispatch(p.req.rid, t, k, shed=shed)
             if self.controller is not None:
